@@ -1,0 +1,163 @@
+// Set-abstraction grouping for Hopper (sm_90a): exact k-nearest selection,
+// neighbour-row gather, center subtraction and ball-query substitution.
+//
+// Replaces the TPU kernels
+//   _knn_gather_block_kernel  pdfnet_tpu/ops/pallas_knn.py:172  (level 1)
+//   _knn_gather_feat_kernel   pdfnet_tpu/ops/pallas_knn.py:107  (level 2)
+// Both compute the same function on rows of width C (C == 3 at level 1):
+//   for each of the first S rows (the centers) of a hand's (N, C) feature
+//   block, select the k rows with the smallest exact float32
+//   d2 = (dx*dx + dy*dy) + dz*dz over the first three channels, ascending,
+//   the lower index winning ties; emit row - center in the xyz channels, or,
+//   where d2 > r2, the center's own row with zero xyz.  At level 1 that
+//   substitute is all zeros, as the TPU kernel writes.
+//
+// Design: one warp per center, eight centers per block.  The hand's xyz is
+// staged in shared memory (12 KB at N = 1024); each lane keeps N/32
+// distances in registers and k rounds of a warp-shuffle argmin over
+// (value, index) pick the neighbours, so nothing but the output touches
+// device memory.  The products and sums use __fmul_rn/__fadd_rn so the
+// compiler cannot contract them into FMAs: selection then matches the plain
+// version bit for bit, ties and points exactly on the radius included.
+//
+// Bound on the H100: the output write (H*S*k*C elements) against ~8 flops
+// per (center, point) pair; at the eval shapes the bytes dominate.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kWarps = 8;        // centers per block
+constexpr int kPerLane = 32;     // distances per lane: N <= 1024
+constexpr int kMaxPoints = 32 * kPerLane;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+sa_group_kernel(const T* __restrict__ feat, T* __restrict__ out, int N, int C,
+                int S, int K, float r2) {
+  extern __shared__ float sxyz[];  // (N, 3) float32
+  const int h = blockIdx.y;
+  const T* fh = feat + static_cast<int64_t>(h) * N * C;
+  for (int i = threadIdx.x; i < N; i += blockDim.x) {
+    const T* row = fh + static_cast<int64_t>(i) * C;
+    sxyz[3 * i + 0] = to_f32(row[0]);
+    sxyz[3 * i + 1] = to_f32(row[1]);
+    sxyz[3 * i + 2] = to_f32(row[2]);
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int s = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (s >= S) return;
+  const float cx = sxyz[3 * s + 0];
+  const float cy = sxyz[3 * s + 1];
+  const float cz = sxyz[3 * s + 2];
+
+  float d[kPerLane];
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j) {
+    const int n = j * 32 + lane;
+    if (n < N) {
+      const float dx = __fsub_rn(sxyz[3 * n + 0], cx);
+      const float dy = __fsub_rn(sxyz[3 * n + 1], cy);
+      const float dz = __fsub_rn(sxyz[3 * n + 2], cz);
+      d[j] = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                       __fmul_rn(dz, dz));
+    } else {
+      d[j] = CUDART_INF_F;
+    }
+  }
+
+  const T* crow = fh + static_cast<int64_t>(s) * C;
+  T* orow = out + (static_cast<int64_t>(h) * S + s) * K * C;
+  for (int r = 0; r < K; ++r) {
+    // lane-local argmin; ascending j keeps the lowest index on ties
+    float best = CUDART_INF_F;
+    int bi = 0x7fffffff;
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j) {
+      if (d[j] < best) {
+        best = d[j];
+        bi = j * 32 + lane;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ob = __shfl_xor_sync(0xffffffffu, best, off);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+      if (ob < best || (ob == best && oi < bi)) {
+        best = ob;
+        bi = oi;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j) {
+      if (j * 32 + lane == bi) d[j] = CUDART_INF_F;
+    }
+
+    T* o = orow + static_cast<int64_t>(r) * C;
+    if (best <= r2) {
+      const T* src = fh + static_cast<int64_t>(bi) * C;
+      for (int ch = lane; ch < C; ch += 32) {
+        if (ch < 3) {
+          const float c = ch == 0 ? cx : (ch == 1 ? cy : cz);
+          o[ch] = from_f32<T>(__fsub_rn(to_f32(src[ch]), c));
+        } else {
+          o[ch] = src[ch];
+        }
+      }
+    } else {
+      for (int ch = lane; ch < C; ch += 32) {
+        o[ch] = ch < 3 ? from_f32<T>(0.0f) : crow[ch];
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* feat, void* out, int H, int N, int C, int S, int K,
+           float r2, void* stream) {
+  if (H < 1 || N < 1 || N > kMaxPoints || C < 3 || S < 1 || S > N || K < 1 ||
+      K > N) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  dim3 grid((S + kWarps - 1) / kWarps, H);
+  const size_t smem = static_cast<size_t>(N) * 3 * sizeof(float);
+  sa_group_kernel<T><<<grid, kWarps * 32, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(feat), static_cast<T*>(out), N, C, S, K, r2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Level 1: points (H, N, 3) float32 -> out (H, S, K, 3) float32.
+extern "C" int sa_group_l1(const void* points, void* out, int H, int N, int S,
+                           int K, float r2, void* stream) {
+  return launch<float>(points, out, H, N, 3, S, K, r2, stream);
+}
+
+// Level 2: feat (H, N, C) float32 (bf16 == 0) or bfloat16 (bf16 == 1)
+// -> out (H, S, K, C) of the same type.
+extern "C" int sa_group_l2(const void* feat, void* out, int H, int N, int C,
+                           int S, int K, float r2, int bf16, void* stream) {
+  return bf16 ? launch<__nv_bfloat16>(feat, out, H, N, C, S, K, r2, stream)
+              : launch<float>(feat, out, H, N, C, S, K, r2, stream);
+}

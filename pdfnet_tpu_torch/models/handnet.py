@@ -1,0 +1,131 @@
+"""Top-level model: encoder -> mid fusion -> dual-hand GCN mesh decoder
+(port of ``pdfnet_tpu/models/handnet.py:28-114`` with host-built clouds;
+reference HandNET_GCN, intaghand_model.py:14-47).
+
+The self-contained serving path (``choose=None``: clouds built from the
+predicted mask) is the next slice of the port.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from pdfnet_tpu_torch.config import Config
+from pdfnet_tpu_torch.models.encoder import FPNEncoder, MidFusion
+from pdfnet_tpu_torch.models.gcn_decoder import MeshDecoder
+from pdfnet_tpu_torch.models.layers import CenterHead, L2Norm, StridedUpConv
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(cfg: Config) -> torch.dtype:
+    return _DTYPES[cfg.compute_dtype]
+
+
+class HandNet(nn.Module):
+    def __init__(self, cfg: Config):
+        super().__init__()
+        if cfg.arch != "resnet50":
+            raise ValueError(f"arch={cfg.arch!r}: the port has HandNet "
+                             "(resnet50) only so far")
+        self.cfg = cfg
+        gd, fd = cfg.global_feature_dim, cfg.fmap_dim
+        self.encoder = FPNEncoder(
+            heads=cfg.heads, fmap_dim=fd, global_feature_dim=gd,
+            heatmap_dim=cfg.heatmap_dim, hand_num=cfg.hand_num,
+            resolution=cfg.default_resolution, knn_k=cfg.knn_k,
+            num_level1=cfg.sample_num_level1,
+            num_level2=cfg.sample_num_level2, ball_radius=cfg.ball_radius,
+            ball_radius2=cfg.ball_radius2,
+            input_feature_num=cfg.input_feature_num,
+            raw_center_decode=cfg.replicate_reference_quirks,
+            compute_dtype=compute_dtype(cfg))
+        # decoder-pyramid widths + trunk stages layer3, layer2, layer1
+        self.mid = MidFusion((2 * fd, 2 * fd + 1024, 2 * fd + 512, 2 * fd + 256),
+                             tuple(cfg.deconv_dims))
+        self.decoder = MeshDecoder(
+            global_feature_dim=1024, gcn_in_dim=tuple(cfg.gcn_in_dim),
+            gcn_out_dim=tuple(cfg.gcn_out_dim), graph_k=cfg.graph_k,
+            num_blocks=cfg.graph_layer_num, n_heads=cfg.num_attn_heads,
+            img_size_px=cfg.default_resolution)
+
+    def forward(self, img: torch.Tensor, choose: torch.Tensor,
+                cloud: torch.Tensor):
+        """img (B, H, W, 3) normalized RGB (NHWC, as the JAX model takes it),
+        choose (B, 2, N) flat pixel indices, cloud (B, 2, N, 3); the hand
+        centers are decoded from the predicted heatmap.
+
+        Returns (result, params, hand_dicts, other) as the JAX model does at
+        eval, without what the eval outputs never read: ``other`` has no
+        hms/mask and ``ret`` holds only the heatmap head.
+        """
+        cfg = self.cfg
+        with torch.autocast(img.device.type, dtype=torch.bfloat16,
+                            enabled=cfg.compute_dtype == "bfloat16"):
+            _, _, ret, ind, img_fmaps, hms_fmaps, dp_fmaps = self.encoder(
+                img.permute(0, 3, 1, 2), cloud.float(), choose, aux=False)
+            gf_left, gf_right, _fmaps = self.mid(img_fmaps, hms_fmaps,
+                                                 dp_fmaps)
+        # the mesh decoder stays float32 (Config.mesh_dtype); the mid fmaps
+        # feed only ImgAttn, which is off (use_img_attn=False)
+        result, params, hand_dicts, other = self.decoder(gf_left.float(),
+                                                         gf_right.float())
+        other["ret"] = {k: v.float().permute(0, 2, 3, 1)
+                        for k, v in ret.items()}
+        other["ind"] = ind
+        return result, params, hand_dicts, other
+
+
+def resolve_device(device) -> torch.device:
+    """The card unless the caller asks for another device; never falls back
+    to the CPU on its own."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card unless "
+                           "the caller passes device='cpu'")
+    return device
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator):
+    # flax's default kernel init: truncated normal, variance 1/fan_in
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=gen)
+
+
+@torch.no_grad()
+def init_weights(model: HandNet, seed: int) -> None:
+    """Seeded initialization with the flax model's initializers: lecun-normal
+    kernels, zero biases, unit norms, the -4.59 heatmap bias, L2Norm gain
+    10, and the decoder's unsample layer set from the upsample matrix."""
+    gen = torch.Generator().manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            _lecun_normal_(m.weight, m.weight[0].numel(), gen)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (nn.ConvTranspose2d, StridedUpConv)):
+            _lecun_normal_(m.weight, m.weight.shape[0] * m.weight[0, 0].numel(),
+                           gen)
+            m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            _lecun_normal_(m.weight, m.weight.shape[0], gen)
+        elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d, nn.LayerNorm)):
+            m.reset_parameters()
+    for m in model.modules():
+        if isinstance(m, CenterHead):
+            m.conv1.bias.fill_(m.bias_init_value)
+        elif isinstance(m, L2Norm):
+            m.weight.fill_(m.scale_init)
+    model.decoder.unsample.weight.copy_(model.decoder.upsample)
+
+
+def build_model(cfg: Config, device="cuda") -> HandNet:
+    """HandNet with random weights seeded by ``cfg.seed``, in eval mode on
+    ``device``: the card by default; raises without one."""
+    device = resolve_device(device)
+    model = HandNet(cfg)
+    init_weights(model, cfg.seed)
+    return model.to(device).eval()

@@ -1,0 +1,250 @@
+"""Set abstraction on the eval path: exact kNN grouping + BN-folded point MLP
++ max-pool, one call per PointNet++ level.
+
+Port of ``sa_level1_pallas`` / ``sa_level2_pallas``
+(``pdfnet_tpu/ops/pallas_knn.py:231`` and ``:290``), each of which chains a
+grouping kernel and ``_mlpmax_feat_kernel``.  Three CUDA kernels replace the
+three TPU kernel bodies:
+
+================  ==============================================  =====================
+wrapper           replaces (pdfnet_tpu/ops/pallas_knn.py)          source
+================  ==============================================  =====================
+sa_group_l1       ``_knn_gather_block_kernel`` :172                 csrc/sa_group.cu
+sa_group_l2       ``_knn_gather_feat_kernel`` :107 (via :346)       csrc/sa_group.cu
+sa_mlp_max        ``_mlpmax_feat_kernel`` :201 (``_mlp_folded``)    csrc/sa_mlp.cu
+================  ==============================================  =====================
+
+Each wrapper runs its plain PyTorch version for a tensor on the CPU and
+launches its kernel for a CUDA tensor, or raises: there is no fallback.
+``launches`` counts kernel launches per wrapper; the plain versions never
+touch it.  What bounds each kernel on the H100 is noted in its source.
+
+Semantics (the TPU kernels', which the tests hold the plain versions to):
+
+- selection: for each of the first S rows (the centers), the k rows with the
+  smallest float32 d2 = (dx*dx + dy*dy) + dz*dz over the xyz channels,
+  ascending, the lowest index winning ties;
+- ball query: a neighbour with d2 > r2 (compared in float32) becomes the
+  center's own row with zero xyz; in range, xyz becomes row - center;
+- level 2 in bfloat16 groups bf16 rows, so its distances use the
+  bf16-rounded xyz (as ``sa_level2_pallas`` casts before ``_group_feat_raw``);
+- MLP: per layer, product in the compute dtype with a float32 accumulator,
+  then bias + ReLU in float32; max over the k neighbours.
+
+Compute dtype: the model's (``Config.compute_dtype``).  float32 reproduces
+the TPU kernels' interpret mode, bfloat16 their on-chip mode.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from pdfnet_tpu_torch.ops import cuda_build
+
+launches: Dict[str, int] = {"sa_group_l1": 0, "sa_group_l2": 0,
+                            "sa_mlp_max": 0}
+
+Folded = Sequence[Tuple[torch.Tensor, torch.Tensor]]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_GROUP_SIGS = {"sa_group_l1": [_P, _P, _I, _I, _I, _I, _F, _P],
+               "sa_group_l2": [_P, _P, _I, _I, _I, _I, _I, _F, _I, _P]}
+_MLP_SIGS = {"sa_mlp_max": [_P, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _P, _P, _P, _P, _P, _P, _P, _P]}
+MAX_POINTS = 1024        # csrc/sa_group.cu: N/32 distances per lane
+MAX_K_MLP = 64           # csrc/sa_mlp.cu: rows per block
+MLP_WIDTHS = ((64, 64, 128), (128, 128, 256))
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _f32(radius2: float) -> float:
+    """The float32 value of a radius, as a Python float: comparing a float32
+    tensor against it gives the float32 comparison on any promotion path."""
+    return float(np.float32(radius2))
+
+
+def _stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
+
+
+def _check_cuda(t: torch.Tensor, name: str, dtypes) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CPU or CUDA tensor, got {t.device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: dtype {t.dtype} not in {dtypes}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")
+
+
+# ---- plain versions --------------------------------------------------------
+
+def knn_plain(xyz: torch.Tensor, num_centers: int, k: int):
+    """The selection both grouping kernels make: for each of the first S
+    rows of xyz (H, N, 3) float32, the k nearest rows ascending, the lowest
+    index first among equal distances -> (dist (H, S, k), idx (H, S, k))."""
+    ctr = xyz[:, :num_centers]
+    diff = xyz[:, None, :, :] - ctr[:, :, None, :]              # (H, S, N, 3)
+    d2 = ((diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1])
+          + diff[..., 2] * diff[..., 2])
+    # stable ascending sort: ties keep index order, the TPU kernels' rule
+    dist, idx = torch.sort(d2, dim=-1, stable=True)
+    return dist[..., :k], idx[..., :k]
+
+
+def group_plain(feat: torch.Tensor, num_centers: int, k: int,
+                radius2: float) -> torch.Tensor:
+    """Plain version of both grouping kernels.
+
+    feat (H, N, C), xyz in channels 0..2, float32 or bfloat16 ->
+    (H, S, k, C) of feat's dtype.
+    """
+    H, N, C = feat.shape
+    S = num_centers
+    xyz = feat[..., :3].float()
+    ctr = xyz[:, :S]
+    dist, idx = knn_plain(xyz, S, k)
+    rows = feat[torch.arange(H, device=feat.device)[:, None, None], idx]
+    rows = torch.cat([(rows[..., :3].float() - ctr[:, :, None, :]).to(feat.dtype),
+                      rows[..., 3:]], dim=-1)
+    own = feat[:, :S, None, :].clone()
+    own[..., :3] = 0
+    valid = (dist <= _f32(radius2))[..., None]
+    return torch.where(valid, rows, own.expand_as(rows))
+
+
+def mlp_max_plain(grouped: torch.Tensor, folded: Folded,
+                  compute_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of ``sa_mlp_max``: (H, S, k, C) -> (H, S, F3) float32.
+
+    Rounding the operands to the compute dtype and multiplying in float32
+    is a product in that dtype with a float32 accumulator (a bf16 x bf16
+    product is exact in float32).
+    """
+    with torch.autocast(grouped.device.type, enabled=False):
+        h = grouped
+        for w, b in folded:
+            h = h.to(compute_dtype).float() @ w.to(compute_dtype).float()
+            h = torch.relu(h + b.float())
+        return h.amax(dim=2)
+
+
+# ---- kernel wrappers -------------------------------------------------------
+
+def _check_group_shapes(name, N, S, k):
+    if N > MAX_POINTS or not 1 <= S <= N or not 1 <= k <= N:
+        raise ValueError(f"{name}: needs N <= {MAX_POINTS}, S <= N, k <= N; "
+                         f"got N={N}, S={S}, k={k}")
+
+
+def sa_group_l1(points: torch.Tensor, num_centers: int, k: int,
+                radius2: float) -> torch.Tensor:
+    """Level-1 grouping: points (H, N, 3) float32 -> (H, S, k, 3) float32,
+    center-relative xyz, zero where out of the ball."""
+    if points.device.type == "cpu":
+        return group_plain(points, num_centers, k, radius2)
+    _check_cuda(points, "sa_group_l1", (torch.float32,))
+    H, N, C = points.shape
+    if C != 3:
+        raise ValueError(f"sa_group_l1: points must be (H, N, 3), got {C}")
+    _check_group_shapes("sa_group_l1", N, num_centers, k)
+    out = torch.empty((H, num_centers, k, 3), dtype=points.dtype,
+                      device=points.device)
+    lib = cuda_build.library("sa_group.cu", _GROUP_SIGS)
+    _check(lib.sa_group_l1(points.data_ptr(), out.data_ptr(), H, N,
+                           num_centers, k, _f32(radius2), _stream()),
+           "sa_group_l1")
+    launches["sa_group_l1"] += 1
+    return out
+
+
+def sa_group_l2(feat: torch.Tensor, num_centers: int, k: int,
+                radius2: float) -> torch.Tensor:
+    """Level-2 grouping: feat (H, N, C) float32 or bfloat16 -> (H, S, k, C)
+    of the same dtype; out-of-ball neighbours become the center's own row
+    with zero xyz."""
+    if feat.device.type == "cpu":
+        return group_plain(feat, num_centers, k, radius2)
+    _check_cuda(feat, "sa_group_l2", (torch.float32, torch.bfloat16))
+    H, N, C = feat.shape
+    if C < 3:
+        raise ValueError(f"sa_group_l2: needs xyz in the first 3 of C={C}")
+    _check_group_shapes("sa_group_l2", N, num_centers, k)
+    out = torch.empty((H, num_centers, k, C), dtype=feat.dtype,
+                      device=feat.device)
+    lib = cuda_build.library("sa_group.cu", _GROUP_SIGS)
+    _check(lib.sa_group_l2(feat.data_ptr(), out.data_ptr(), H, N, C,
+                           num_centers, k, _f32(radius2),
+                           int(feat.dtype == torch.bfloat16), _stream()),
+           "sa_group_l2")
+    launches["sa_group_l2"] += 1
+    return out
+
+
+def sa_mlp_max(grouped: torch.Tensor, folded: Folded,
+               compute_dtype: torch.dtype) -> torch.Tensor:
+    """BN-folded 3-layer MLP + max over k: (H, S, k, C) -> (H, S, F3) f32."""
+    if grouped.device.type == "cpu":
+        return mlp_max_plain(grouped, folded, compute_dtype)
+    bf16 = compute_dtype == torch.bfloat16
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"sa_mlp_max: compute dtype {compute_dtype}")
+    _check_cuda(grouped, "sa_mlp_max",
+                (torch.float32, torch.bfloat16) if bf16 else (torch.float32,))
+    H, S, k, C = grouped.shape
+    widths = tuple(w.shape[1] for w, _ in folded)
+    if (widths not in MLP_WIDTHS or folded[0][0].shape[0] != C
+            or not 1 <= k <= MAX_K_MLP):
+        raise ValueError(f"sa_mlp_max: unsupported C={C}, widths={widths}, "
+                         f"k={k} (widths {MLP_WIDTHS}, k <= {MAX_K_MLP})")
+    # weights rounded to the compute dtype, carried as float32
+    params = []
+    for w, b in folded:
+        params += [w.to(compute_dtype).float().contiguous(),
+                   b.float().contiguous()]
+    for p in params:
+        _check_cuda(p, "sa_mlp_max", (torch.float32,))
+        if p.device != grouped.device:
+            raise ValueError("sa_mlp_max: weights on another device")
+    out = torch.empty((H, S, widths[-1]), dtype=torch.float32,
+                      device=grouped.device)
+    lib = cuda_build.library("sa_mlp.cu", _MLP_SIGS)
+    _check(lib.sa_mlp_max(grouped.data_ptr(),
+                          int(grouped.dtype == torch.bfloat16), int(bf16),
+                          H * S, k, C, *widths,
+                          *(p.data_ptr() for p in params), out.data_ptr(),
+                          _stream()),
+           "sa_mlp_max")
+    launches["sa_mlp_max"] += 1
+    return out
+
+
+# ---- one set-abstraction level ---------------------------------------------
+
+def sa_level1(points: torch.Tensor, folded: Folded, k: int, num_centers: int,
+              radius2: float, compute_dtype: torch.dtype) -> torch.Tensor:
+    """Level-1 set abstraction (``sa_level1_pallas``): points (H, N, 3),
+    the first ``num_centers`` rows the centers -> (H, S, F3) float32."""
+    grouped = sa_group_l1(points.float().contiguous(), num_centers, k, radius2)
+    return sa_mlp_max(grouped, folded, compute_dtype)
+
+
+def sa_level2(feat: torch.Tensor, folded: Folded, k: int, num_centers: int,
+              radius2: float, compute_dtype: torch.dtype) -> torch.Tensor:
+    """Level-2 set abstraction (``sa_level2_pallas``): feat (H, N, C) with
+    xyz leading, grouped in the compute dtype -> (H, S, F3) float32."""
+    grouped = sa_group_l2(feat.to(compute_dtype).contiguous(), num_centers,
+                          k, radius2)
+    return sa_mlp_max(grouped, folded, compute_dtype)

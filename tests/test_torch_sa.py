@@ -1,0 +1,257 @@
+"""The port's set abstraction (``pdfnet_tpu_torch.ops.sa``) against the JAX
+Pallas kernels in interpret mode.
+
+On CPU tensors the port's wrappers run their plain PyTorch versions, so these
+tests hold the plain versions (which ``chip_smoke.py`` in turn holds the CUDA
+kernels to, on the card) to the TPU kernels' semantics:
+
+- selection: identical neighbour indices, ties included (planted by a dyadic
+  grid on which every distance is exact), against ``knn_pallas`` and
+  ``group_feat_pallas``, which run the same ``_select_loop`` as
+  ``sa_level{1,2}_pallas``;
+- grouping: bit-identical grouped rows, with points exactly on the radius;
+- pooled features: ``atol=rtol=1e-5`` (float32 sums in another order).
+
+Do not compare with the JAX ``topk`` path: it ranks by the matmul expansion
+of the distance (``grouping.py:34-46``), whose rounding reorders near ties.
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pdfnet_tpu.models.pointnet import PointNetPlus as JaxPointNetPlus
+from pdfnet_tpu.ops import grouping
+from pdfnet_tpu.ops.pallas_knn import (_mlp_folded, group_feat_pallas,
+                                       knn_pallas, sa_level1_pallas,
+                                       sa_level2_pallas)
+
+from pdfnet_tpu_torch import convert
+from pdfnet_tpu_torch.models.pointnet import PointMLP, PointNetPlus, _fold_point_mlp
+from pdfnet_tpu_torch.ops import sa
+
+GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
+H, N, S, K = 2, 256, 128, 8
+R1, R2 = 0.015, 0.04
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _grid_points(seed, n=N, c=3):
+    """Points on a 1/32 grid in [-1/8, 1/8]^3: every difference and squared
+    distance is exact in float32, so equal distances are exact ties.  Row
+    S+1 of each hand sits at distance exactly 1/8 from center 0 (d2 = 1/64,
+    on the test radius below); row S+2 just outside it."""
+    rng = np.random.RandomState(seed)
+    x = rng.randint(-4, 5, (H, n, c)).astype(np.float32) / 32.0
+    x[:, S + 1, :3] = x[:, 0, :3] + np.float32([0.125, 0, 0])
+    x[:, S + 2, :3] = x[:, 0, :3] + np.float32([0.125 + 2 ** -20, 0, 0])
+    return x
+
+
+def _folded(widths, cin, seed):
+    rng = np.random.RandomState(seed)
+    out = []
+    for f in widths:
+        out.append((rng.randn(cin, f).astype(np.float32) / np.sqrt(cin),
+                    rng.uniform(-0.3, 0.3, f).astype(np.float32)))
+        cin = f
+    return out
+
+
+def _torch_folded(folded):
+    return [(torch.from_numpy(w), torch.from_numpy(b)) for w, b in folded]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_knn_selection_matches_pallas_with_ties(seed):
+    pts = _grid_points(seed)
+    dist_j, idx_j = knn_pallas(jnp.asarray(pts[:, :S]), jnp.asarray(pts),
+                               k=K, interpret=True)
+    dist_t, idx_t = sa.knn_plain(torch.from_numpy(pts), S, K)
+    d = np.asarray(dist_j)
+    assert (d[..., 1:] == d[..., :-1]).any(), "no ties planted"
+    np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))
+    np.testing.assert_array_equal(dist_t.numpy(), d)
+
+
+@pytest.mark.parametrize("radius2", [R1, 1.0 / 64])
+def test_group_l1_matches_pallas_bitwise(radius2):
+    """Level-1 grouping (C = 3: out-of-ball neighbours become zeros)."""
+    pts = _grid_points(2)
+    g_j, idx_j, valid_j = group_feat_pallas(jnp.asarray(pts), k=K,
+                                            num_centers=S, radius2=radius2,
+                                            interpret=True)
+    g_t = sa.sa_group_l1(torch.from_numpy(pts), S, K, radius2)
+    if radius2 == 1.0 / 64:      # the planted rows straddle the radius
+        v = np.asarray(valid_j)[:, 0][np.asarray(idx_j)[:, 0] == S + 1]
+        assert v.all()
+    np.testing.assert_array_equal(g_t.numpy(), np.asarray(g_j))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_group_l2_matches_pallas_bitwise(dtype):
+    """Level-2 grouping of 131-wide rows; in bf16 the rows, and so the xyz
+    the distances use, are bf16 (``sa_level2_pallas`` casts first)."""
+    rng = np.random.RandomState(3)
+    feat = np.concatenate([_grid_points(3)[..., :3],
+                           rng.randn(H, N, 128).astype(np.float32)], -1)
+    fj = jnp.asarray(feat).astype(dtype)
+    g_j, _, _ = group_feat_pallas(fj, k=K, num_centers=S, radius2=1.0 / 64,
+                                  interpret=True)
+    ft = torch.from_numpy(feat).to(getattr(torch, dtype))
+    g_t = sa.sa_group_l2(ft, S, K, 1.0 / 64)
+    assert g_t.dtype == ft.dtype
+    np.testing.assert_array_equal(g_t.float().numpy(),
+                                  np.asarray(g_j.astype(jnp.float32)))
+
+
+def test_sa_level1_matches_pallas():
+    pts = np.random.RandomState(4).uniform(-0.1, 0.1, (H, N, 3)).astype(np.float32)
+    folded = _folded(sa.MLP_WIDTHS[0], 3, 5)
+    ref = sa_level1_pallas(jnp.asarray(pts), folded, k=K, num_centers=S,
+                           radius2=R1, interpret=True)
+    got = sa.sa_level1(torch.from_numpy(pts), _torch_folded(folded), K, S,
+                       R1, torch.float32)
+    assert got.shape == (H, S, sa.MLP_WIDTHS[0][-1])
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def test_sa_level2_matches_pallas():
+    rng = np.random.RandomState(6)
+    feat = np.concatenate([rng.uniform(-0.1, 0.1, (H, N, 3)),
+                           rng.randn(H, N, 128)], -1).astype(np.float32)
+    folded = _folded(sa.MLP_WIDTHS[1], 131, 7)
+    ref = sa_level2_pallas(jnp.asarray(feat), folded, k=K, num_centers=S,
+                           radius2=R2, interpret=True)
+    got = sa.sa_level2(torch.from_numpy(feat), _torch_folded(folded), K, S,
+                       R2, torch.float32)
+    assert got.shape == (H, S, sa.MLP_WIDTHS[1][-1])
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def test_mlp_max_bf16_matches_pallas_mlp():
+    """bf16 compute: operands rounded to bf16, float32 accumulate, as the
+    TPU kernel's ``_mlp_folded`` with compute dtype bf16.
+
+    The hidden activations are rounded to bf16 (eps 2**-8 = 3.9e-3) after
+    float32 sums taken in another order on each side, so an activation near
+    a rounding boundary can land one bf16 step apart and carry that through
+    the next layer: seen up to 2e-3 absolute on outputs of ~1.  Held to
+    ``atol=rtol=1e-2``, about two bf16 steps."""
+    rng = np.random.RandomState(8)
+    g = rng.randn(H, S, K, 131).astype(np.float32)
+    folded = _folded(sa.MLP_WIDTHS[1], 131, 9)
+    h = _mlp_folded(jnp.asarray(g.reshape(-1, 131)),
+                    [jnp.asarray(w) for w, _ in folded],
+                    [jnp.asarray(b)[None] for _, b in folded], jnp.bfloat16)
+    ref = np.asarray(h).reshape(H, S, K, -1).max(axis=2)
+    got = sa.sa_mlp_max(torch.from_numpy(g), _torch_folded(folded),
+                        torch.bfloat16)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-2, rtol=1e-2)
+
+
+def _sort_neighbors(g):
+    """Neighbour rows of (B, S, K, C) in lexicographic order."""
+    out = np.empty_like(g)
+    for b in range(g.shape[0]):
+        for s in range(g.shape[1]):
+            rows = g[b, s]
+            out[b, s] = rows[np.lexsort(rows.T[::-1])]
+    return out
+
+
+@pytest.mark.parametrize("level", [1, 2])
+def test_group_plain_matches_reference_goldens(level):
+    """Full-size grouping (1024 -> 512 -> 128 points, k=64) against the
+    torch reference's recorded output, compared as neighbour sets (the
+    reference's topk order is arbitrary)."""
+    g = np.load(os.path.join(GOLDENS, "grouping.npz"))
+    if level == 1:
+        got = sa.group_plain(torch.from_numpy(g["points"]), 512, 64, R1)
+        ref = np.transpose(g["level1"], (0, 2, 3, 1))
+    else:
+        feat = np.ascontiguousarray(np.transpose(g["feat2"], (0, 2, 1)))
+        got = sa.group_plain(torch.from_numpy(feat), 128, 64, R2)
+        ref = np.transpose(g["level2"], (0, 2, 3, 1))
+    np.testing.assert_allclose(_sort_neighbors(got.numpy()),
+                               _sort_neighbors(ref), atol=1e-6)
+
+
+def test_wrappers_refuse_non_cpu_non_cuda_tensors():
+    """No silent fallback: a tensor that is neither on the CPU nor on a
+    CUDA device is refused rather than run through the plain version."""
+    pts = torch.zeros((H, N, 3), device="meta")
+    with pytest.raises(ValueError):
+        sa.sa_group_l1(pts, S, K, R1)
+    with pytest.raises(ValueError):
+        sa.sa_group_l2(torch.zeros((H, N, 131), device="meta"), S, K, R2)
+    with pytest.raises(ValueError):
+        sa.sa_mlp_max(torch.zeros((H, S, K, 3), device="meta"),
+                      [(torch.zeros(3, 64), torch.zeros(64))], torch.float32)
+
+
+def _jitter(tree, rng):
+    out = {}
+    for k, v in tree.items():
+        if hasattr(v, "items"):
+            out[k] = _jitter(v, rng)
+        elif k == "var":
+            out[k] = np.asarray(v) + rng.uniform(0.5, 2.0, v.shape).astype(np.float32)
+        elif k == "mean":
+            out[k] = np.asarray(v) + rng.uniform(-0.3, 0.3, v.shape).astype(np.float32)
+        else:
+            out[k] = np.asarray(v)
+    return out
+
+
+def test_fold_point_mlp_matches_bn_eval():
+    """The fold reproduces Linear + BatchNorm(eval) + ReLU."""
+    torch.manual_seed(0)
+    mlp = PointMLP(16, (8, 12, 8)).eval()
+    with torch.no_grad():
+        for i in range(3):
+            bn = getattr(mlp, f"bn{i}")
+            bn.running_mean.uniform_(-0.3, 0.3)
+            bn.running_var.uniform_(0.5, 2.0)
+            bn.weight.uniform_(0.5, 1.5)
+            bn.bias.uniform_(-0.3, 0.3)
+    x = torch.randn(4, 7, 16)
+    h = x
+    for w, b in _fold_point_mlp(mlp):
+        h = torch.relu(h @ w + b)
+    np.testing.assert_allclose(h.detach().numpy(), mlp(x).detach().numpy(),
+                               **TOL)
+
+
+def test_pointnet_plus_matches_jax(monkeypatch):
+    """The port's PointNetPlus (plain set abstraction) against the JAX one
+    on its pallas_sa path in interpret mode, same weights, jittered BN."""
+    monkeypatch.setattr(grouping, "_FUSED_INTERPRET", True)
+    rng = np.random.RandomState(0)
+    B, res = 1, 64
+    points = rng.uniform(-0.1, 0.1, (B, 2, N, 3)).astype(np.float32)
+    choose = rng.randint(0, res * res, (B, 2, N)).astype(np.int32)
+    emb = [rng.randn(B, res, res, 3).astype(np.float32),
+           rng.randn(B, res // 2, res // 2, 64).astype(np.float32),
+           rng.randn(B, res // 4, res // 4, 256).astype(np.float32)]
+    kw = dict(knn_k=K, num_level1=S, num_level2=S, ball_radius=R1,
+              ball_radius2=R2, input_feature_num=3, resolution=res)
+    jmod = JaxPointNetPlus(knn_method="pallas_sa", gather_method="take",
+                           dtype=jnp.float32, **kw)
+    variables = jmod.init({"params": jax.random.PRNGKey(0)}, points, emb,
+                          choose, False)
+    variables = _jitter(variables, rng)
+    ref = np.asarray(jmod.apply(variables, points, emb, choose, False))
+
+    tmod = PointNetPlus(**kw).eval()
+    tmod.load_state_dict(convert.from_flax(variables, tmod))
+    with torch.inference_mode():
+        got = tmod(torch.from_numpy(points),
+                   [torch.from_numpy(e).permute(0, 3, 1, 2) for e in emb],
+                   torch.from_numpy(choose))
+    assert got.shape == (B, 2, 1024)
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
