@@ -2,23 +2,31 @@
 """Smoke run of the PyTorch port (``pdfnet_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py             # from the root of a checkout
-    python3 chip_smoke.py --profile   # also profiles the bf16 eval step
+    python3 chip_smoke.py --profile   # also profiles the bf16 eval and train steps
 
 Phases, each of which fails the run:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of every CUDA source in ``pdfnet_tpu_torch/csrc`` (one nvcc per
    source, all started together);
-3. every kernel at the shapes of the main path at batch 8 (16 hands),
-   against its plain PyTorch version on the same inputs: the grouping
-   kernels bit for bit (identical neighbour selection, exact ties planted),
-   the MLP kernel within a stated tolerance; kernel, plain and bound times;
+3. every kernel at the shapes of its path at batch 8 (16 hands), against
+   its plain PyTorch version on the same inputs: the grouping kernels bit
+   for bit (identical neighbour selection, exact ties planted), the MLP
+   kernel within a stated tolerance; kernel, plain and bound times; the
+   train grouping ops' backward passes on the card against the CPU;
 4. the batched RGB-D eval step (``build_model`` + ``make_eval_step``) at the
    full width of the default ``Config`` with seeded random weights and
    jittered BatchNorm statistics, on the bench's batch layout: output shapes
    and finiteness, the kernels' launch counts in one step, the float32 step
    on the card against the same model on the CPU (plain versions) at batch
-   1, and frames/s in bfloat16 and float32.
+   1, and frames/s in bfloat16 and float32;
+5. the train step (``create_train_state`` + ``make_train_step``: forward in
+   training mode, the loss, backward, Adam) at the full width of the default
+   ``Config`` on a synthetic batch of 8 from the port's ``make_batch``: the
+   kernels' launch counts in one step, finite losses, parameters and
+   BatchNorm statistics moved, samples/s in bfloat16 and float32; and a
+   float32 step on the card against the CPU at batch 2 (frozen BatchNorm, no
+   dropout): every loss term and every parameter's gradient.
 
 TF32 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``), so every float32 number is true
@@ -52,13 +60,31 @@ MLP_TOL_BF16 = dict(atol=1e-2, rtol=1e-2)
 # the float32 eval step on the card against the CPU: convolutions summed in
 # another order through ResNet-50, relative to each output's magnitude
 STEP_TOL = 1e-3
+# the grouping backward passes on the card against the CPU: scatter_add_ sums
+# a point's cotangents in atomic order on the card, in index order on the
+# CPU; float32 rounding of such sums stays far below 1e-5 of the largest
+GROUP_BWD_TOL = 1e-5
+# the float32 train step on the card against the CPU at batch 2: each loss
+# term relative to its magnitude, and each gradient within GRAD_TOL of its
+# parameter's largest gradient entry (plus GRAD_TOL relative).  Forward and
+# backward sum ResNet-50's convolutions in other orders (cuDNN against the
+# CPU's kernels), ~1e-6 relative per layer; a wrong gradient is off by O(1).
+LOSS_TOL = 1e-3
+GRAD_TOL = 5e-3
+TRAIN_WARMUP, TRAIN_ITERS = 3, 10
 
 SOURCES = {"sa_group_l1": ("pdfnet_tpu_torch/csrc/sa_group.cu",
                            "pdfnet_tpu/ops/pallas_knn.py:172"),
            "sa_group_l2": ("pdfnet_tpu_torch/csrc/sa_group.cu",
                            "pdfnet_tpu/ops/pallas_knn.py:107"),
            "sa_mlp_max": ("pdfnet_tpu_torch/csrc/sa_mlp.cu",
-                          "pdfnet_tpu/ops/pallas_knn.py:201")}
+                          "pdfnet_tpu/ops/pallas_knn.py:201"),
+           "knn_group_xyz": ("pdfnet_tpu_torch/csrc/sa_group.cu",
+                             "pdfnet_tpu/ops/pallas_knn.py:82"),
+           "group_feat": ("pdfnet_tpu_torch/csrc/sa_group.cu",
+                          "pdfnet_tpu/ops/pallas_knn.py:107")}
+EVAL_KERNELS = ("sa_group_l1", "sa_group_l2", "sa_mlp_max")
+TRAIN_KERNELS = ("knn_group_xyz", "group_feat")
 
 
 def fail(msg: str) -> int:
@@ -120,10 +146,12 @@ def folded_mlp(widths, cin, gen, dev):
     return out
 
 
-def group_bound(H, N, C, S, k, esize):
-    """(ms, bound_by): read the rows once, write the groups once; d2 and one
+def group_bound(H, N, C, S, k, esize, selection=False):
+    """(ms, bound_by): read the rows once, write the groups once (and, with
+    ``selection``, each neighbour's int32 index and float32 d2); d2 and one
     compare per (center, point) pair at the float32 rate."""
-    bytes_ = (H * N * C + H * S * k * C) * esize
+    bytes_ = (H * N * C + H * S * k * C) * esize + (H * S * k * 8
+                                                    if selection else 0)
     ops = H * S * N * 9
     t_b, t_o = bytes_ / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
@@ -141,11 +169,11 @@ def mlp_bound(H, S, k, C, widths, in_esize, bf16):
 
 
 def kernel_phase(cfg, dev):
-    """Every kernel at the main path's shapes in float32 and bfloat16,
-    against its plain version.  Returns per-kernel numbers of the calls one
-    eval step makes in the default (bf16) compute dtype."""
+    """Every kernel at its path's shapes in float32 and bfloat16, against
+    its plain version.  Returns per-kernel numbers of the calls one step of
+    its path (eval or train) makes in the default (bf16) compute dtype."""
     import torch
-    from pdfnet_tpu_torch.ops import sa
+    from pdfnet_tpu_torch.ops import grouping, sa
 
     gen = torch.Generator().manual_seed(0)
     xyz, feat = kernel_inputs(cfg, gen, dev)
@@ -220,7 +248,89 @@ def kernel_phase(cfg, dev):
                    mlp_bound(H, gin.shape[1], k, C, sa.MLP_WIDTHS[level - 1],
                              gin.element_size(), cdt == torch.bfloat16),
                    cdt == torch.bfloat16)
+
+    # knn_group_xyz: float32 points, the train path's level 1
+    got = grouping.knn_group_xyz(xyz, S1, k)
+    want = grouping.knn_group_xyz_plain(xyz, S1, k)
+    torch.cuda.synchronize()
+    err = max((g.double() - w.double()).abs().max().item()
+              for g, w in zip(got, want))
+    check(err == 0.0, f"knn_group_xyz differs from its plain version ({err})")
+    record("knn_group_xyz", "f32", err,
+           time_ms(lambda: grouping.knn_group_xyz(xyz, S1, k)),
+           time_ms(lambda: grouping.knn_group_xyz_plain(xyz, S1, k), iters=5),
+           group_bound(H, N, 3, S1, k, 4, selection=True), True)
+
+    # a non-finite cloud (what skip_nonfinite_updates guards against): NaN
+    # distances rank after +inf, so every selected row is a row of the hand
+    bad = xyz[:2].clone()
+    bad[0, 5:40] = float("nan")
+    bad[1, 7] = float("inf")
+    for name, fn, plain in (
+            ("knn_group_xyz", grouping.knn_group_xyz,
+             grouping.knn_group_xyz_plain),
+            ("sa_group_l1", lambda p, s, kk: (sa.sa_group_l1(p, s, kk, r1),),
+             lambda p, s, kk: (sa.group_plain(p, s, kk, r1),))):
+        for g, w in zip(fn(bad, S1, k), plain(bad, S1, k)):
+            check(torch.equal(g.cpu().long() if not g.is_floating_point()
+                              else g.cpu().nan_to_num(7.0),
+                              w.cpu().long() if not w.is_floating_point()
+                              else w.cpu().nan_to_num(7.0)),
+                  f"{name} differs from its plain version on a cloud with "
+                  f"non-finite points")
+    print("kernel knn_group_xyz, sa_group_l1: a cloud with NaN and inf "
+          "points selects as the plain version does")
+
+    # group_feat: rows in the compute dtype (bf16 on the main path)
+    for dt, step_case in ((torch.float32, False), (torch.bfloat16, True)):
+        f = feat.to(dt).contiguous()
+        got = grouping.group_feat(f, S2, k, r2)
+        rows, dist, idx = sa.group_select_plain(f, S2, k, r2)
+        torch.cuda.synchronize()
+        err = max((g.double() - w.double()).abs().max().item()
+                  for g, w in zip(got, (rows, idx, dist)))
+        check(err == 0.0, f"group_feat [{dt}] differs from its plain version "
+                          f"({err})")
+        record("group_feat", str(dt).split(".")[-1], err,
+               time_ms(lambda: grouping.group_feat(f, S2, k, r2)),
+               time_ms(lambda: sa.group_select_plain(f, S2, k, r2), iters=5),
+               group_bound(H, S1, f.shape[-1], S2, k, f.element_size(),
+                           selection=True), step_case)
+
+    grouping_backward_check(cfg, xyz, feat, gen)
     return steps
+
+
+def grouping_backward_check(cfg, xyz, feat, gen) -> None:
+    """The train grouping ops' gradients on the card against the CPU, with
+    one seeded cotangent: the selection is bit-identical (checked above), so
+    only the order of scatter_add_'s sums may differ."""
+    import torch
+    from pdfnet_tpu_torch.ops import grouping
+
+    S1, S2, k = cfg.sample_num_level1, cfg.sample_num_level2, cfg.knn_k
+    cases = [("group_points", xyz,
+              lambda x: grouping.group_points(x, k, S1, cfg.ball_radius)[0])]
+    for dt in (torch.float32, torch.bfloat16):
+        cases.append((f"group_points_level2 [{str(dt).split('.')[-1]}]", feat,
+                      lambda x, dt=dt: grouping.group_points_level2(
+                          x, S2, k, cfg.ball_radius2, dt)[0]))
+    for name, inp, fn in cases:
+        grads = []
+        for x in (inp, inp.cpu()):
+            x = x.clone().requires_grad_(True)
+            out = fn(x)
+            if not grads:
+                cot = torch.randn(out.shape, generator=gen)
+            grads.append(torch.autograd.grad(out, x, cot.to(x.device))[0])
+        torch.cuda.synchronize()
+        got, want = grads[0].cpu(), grads[1]
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        print(f"backward {name}: card vs cpu max_abs_err {err:.3e} (scale "
+              f"{scale:.3e})")
+        check(err <= GROUP_BWD_TOL * scale,
+              f"{name} backward on the card differs from the CPU ({err})")
 
 
 # ---- phase 4: the eval step ------------------------------------------------
@@ -272,7 +382,7 @@ def fps(step, batch, B, iters=20, warmup=3) -> float:
 def eval_phase(args, card, cfg, dev):
     import torch
     import pdfnet_tpu_torch as port
-    from pdfnet_tpu_torch.ops import sa
+    from pdfnet_tpu_torch.ops import grouping, sa
 
     cfg32 = cfg.replace(compute_dtype="float32")
     res, n = cfg.default_resolution, cfg.sample_num
@@ -285,14 +395,17 @@ def eval_phase(args, card, cfg, dev):
 
     # the main path, once, through the user's entry points
     sa.reset_launches()
+    grouping.reset_launches()
     out = step(batch)
     torch.cuda.synchronize()
-    launches = dict(sa.launches)
+    launches = {**sa.launches, **grouping.launches}
     print(f"eval step [bf16, batch {BATCH}] kernel launches: "
           f"{json.dumps(launches)}")
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel of the main path was not launched: {launches}")
-    check(sum(launches.values()) == 4, f"expected 4 launches: {launches}")
+    check(all(launches[n] > 0 for n in EVAL_KERNELS),
+          f"a kernel of the eval path was not launched: {launches}")
+    check(sum(launches[n] for n in EVAL_KERNELS) == 4
+          and not any(launches[n] for n in TRAIN_KERNELS),
+          f"expected 4 eval launches and no train kernel: {launches}")
     shapes = {"verts_pred": (BATCH, 2, 778, 3), "joints_pred": (BATCH, 2, 21, 3),
               "verts_pred_off": (BATCH, 2, 778, 3),
               "joints_pred_off": (BATCH, 2, 21, 3),
@@ -337,24 +450,195 @@ def eval_phase(args, card, cfg, dev):
               f"({card})")
     if args.profile:
         for b, B in ((batch, BATCH), (big, 4 * BATCH)):
-            profile(step, b, B)
+            profile(lambda b=b: step(b), f"eval_bf16_b{B}")
     return launches
 
 
-def profile(step, batch, B, steps: int = 5) -> None:
-    """Device time by kernel over a few bf16 steps: the table goes to
-    chiprun_out/, a summary line (device busy share, set-abstraction share)
-    to stdout."""
+# ---- phase 5: the train step -----------------------------------------------
+
+def train_phase(args, card, cfg, dev):
+    """The train step at batch 8 in bf16 (the main path, counted) and in
+    float32.  Returns the kernels' launches in one bf16 step."""
+    import torch
+    import pdfnet_tpu_torch as port
+    from pdfnet_tpu_torch.ops import grouping, sa
+
+    t0 = time.perf_counter()
+    host = port.make_batch(cfg, BATCH, seed=0)
+    print(f"train batch [{BATCH}] made on the host in "
+          f"{time.perf_counter() - t0:.1f} s; valid hands "
+          f"{int(host['valid'].sum())} of {2 * BATCH}")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    consts = port.load_loss_consts(dev)
+    launches = None
+    for dt in ("bfloat16", "float32"):
+        c = cfg.replace(compute_dtype=dt)
+        model = port.build_model(c, device=dev)
+        state = port.create_train_state(c, model)
+        step = port.make_train_step(c, model, consts)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        lr = port.lr_at_epoch(c, 0)
+        params0 = [p.detach().clone() for p in model.parameters()]
+        stats0 = [b.clone() for n, b in model.named_buffers()
+                  if n.endswith(("running_mean", "running_var"))]
+        run = lambda: step(state, batch, 0, lr, gen)
+
+        losses = []
+        if launches is None:
+            # the main path, once, through the user's entry points
+            sa.reset_launches()
+            grouping.reset_launches()
+            losses.append(run()["loss"])
+            torch.cuda.synchronize()
+            launches = {**sa.launches, **grouping.launches}
+            print(f"train step [bf16, batch {BATCH}] kernel launches: "
+                  f"{json.dumps(launches)}")
+            check(all(launches[n] == 1 for n in TRAIN_KERNELS)
+                  and not any(launches[n] for n in EVAL_KERNELS),
+                  f"expected one launch of each train kernel and no eval "
+                  f"kernel: {launches}")
+        while len(losses) < TRAIN_WARMUP:
+            losses.append(run()["loss"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_ITERS):
+            losses.append(run()["loss"])
+        torch.cuda.synchronize()
+        rate = BATCH * TRAIN_ITERS / (time.perf_counter() - t0)
+        losses = torch.stack(losses).cpu()
+        check(bool(torch.isfinite(losses).all()),
+              f"train step [{dt}]: a loss is not finite: {losses.tolist()}")
+        moved = sum(bool((p.detach() != q).any())
+                    for p, q in zip(model.parameters(), params0))
+        stats1 = [b for n, b in model.named_buffers()
+                  if n.endswith(("running_mean", "running_var"))]
+        bn_moved = sum(bool((a != b).any()) for a, b in zip(stats1, stats0))
+        print(f"train step [{dt}, batch {BATCH}]: losses "
+              f"{', '.join(f'{v:.1f}' for v in losses.tolist())}; "
+              f"{moved}/{len(params0)} parameters and {bn_moved}/{len(stats0)} "
+              f"BatchNorm statistics moved")
+        check(moved > 0.9 * len(params0) and bn_moved > 0.9 * len(stats0),
+              f"train step [{dt}]: parameters or statistics did not move")
+        print(f"train step samples/s [{dt}, batch {BATCH}]: {rate:.2f} "
+              f"({card})")
+        if args.profile and dt == "bfloat16":
+            profile(run, f"train_bf16_b{BATCH}")
+        del model, state, step
+    return launches
+
+
+def train_check_phase(cfg, dev):
+    """One float32 train step on the card against the same step on the CPU
+    at batch 2, with frozen BatchNorm and no dropout (live BatchNorm at
+    random init amplifies float32 noise): every loss term and every
+    parameter's gradient.
+
+    The two sides compute the clouds' float32 xyz with other summation
+    orders, so a neighbour on a tie or on the ball's radius can be selected
+    on one side and not on the other, which moves its cotangent to another
+    row.  The CPU step therefore replays the card's neighbour selection
+    (the kernels' own agreement is checked bit for bit in the kernel phase),
+    and the flips are counted and printed."""
+    import torch
+    import pdfnet_tpu_torch as port
+    from pdfnet_tpu_torch.ops import grouping, sa
+
+    c = cfg.replace(compute_dtype="float32", freeze_bn_stats=True,
+                    dropout=0.0)
+    host = port.make_batch(c, 2, seed=1)
+    chosen, flips = [], [0, 0]
+    wrappers = {"knn_group_xyz": lambda out: (out[0], out[1]),
+                "group_feat": lambda out: (out[2], out[1])}
+    originals = {n: getattr(grouping, n) for n in wrappers}
+    knn_plain = sa.knn_plain
+
+    def recording(name):
+        def run(*a, **k):
+            out = originals[name](*a, **k)
+            chosen.append(tuple(t.cpu() for t in wrappers[name](out)))
+            return out
+        return run
+
+    def replay(xyz, num_centers, k):
+        dist, idx = knn_plain(xyz, num_centers, k)
+        card_dist, card_idx = chosen.pop(0)
+        flips[0] += int((idx != card_idx.long()).sum())
+        flips[1] += idx.numel()
+        return card_dist, card_idx.long()
+
+    runs = []
+    for i, d in enumerate((dev, torch.device("cpu"))):
+        model = port.build_model(c, device=d)
+        jitter_bn_(model, seed=2)
+        step = port.make_train_step(c, model, port.load_loss_consts(d))
+        if i == 0:
+            patches = [(grouping, n, recording(n)) for n in wrappers]
+        else:
+            patches = [(grouping, "knn_plain", replay),
+                       (sa, "knn_plain", replay)]
+        saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
+        try:
+            for m, n, fn in patches:
+                setattr(m, n, fn)
+            stats = step(port.create_train_state(c, model), host, 30,
+                         port.lr_at_epoch(c, 0))
+        finally:
+            for m, n, fn in saved:
+                setattr(m, n, fn)
+        runs.append(({k: v.cpu() for k, v in stats.items()},
+                     {n: p.grad.cpu() for n, p in model.named_parameters()
+                      if p.grad is not None}))
+    check(not chosen, "the CPU step grouped fewer times than the card's")
+    print(f"train step [f32, batch 2]: the CPU's own neighbour selection "
+          f"differs from the card's in {flips[0]} of {flips[1]} slots "
+          f"(float32 ties and radius crossings); the CPU step replays the "
+          f"card's")
+    (got_s, got_g), (want_s, want_g) = runs
+    worst = 0.0
+    for key, w in want_s.items():
+        err = (got_s[key] - w).abs().item()
+        scale = max(w.abs().item(), 1e-6)
+        worst = max(worst, err / scale)
+        check(err <= LOSS_TOL * scale,
+              f"f32 train step: {key} {got_s[key].item()} on the card, "
+              f"{w.item()} on the CPU")
+    print(f"train step [f32, batch 2] card vs cpu: {len(want_s)} loss terms "
+          f"within {LOSS_TOL} (worst relative error {worst:.3e})")
+    check(sorted(got_g) == sorted(want_g),
+          "the card and the CPU reach different parameters")
+    errs = {}
+    for name, w in want_g.items():
+        if name.endswith("wk.bias"):
+            # attention key biases cancel in the softmax: their gradient is
+            # analytically zero, and its float32 value is rounding noise
+            continue
+        scale = max(w.abs().max().item(), 1e-12)
+        errs[name] = ((got_g[name] - w).abs()
+                      - GRAD_TOL * w.abs()).max().item() / scale
+    worst = sorted(errs, key=errs.get, reverse=True)[:5]
+    print(f"train step [f32, batch 2] card vs cpu: gradient error / scale, "
+          f"worst: {', '.join(f'{n} {errs[n]:.3e}' for n in worst)}")
+    check(errs[worst[0]] <= GRAD_TOL,
+          f"f32 train step: gradient of {worst[0]} differs by "
+          f"{errs[worst[0]]:.3e} of its scale")
+    print(f"train step [f32, batch 2] card vs cpu: {len(errs)} gradients "
+          f"within {GRAD_TOL} of their scale")
+
+
+def profile(fn, label: str, steps: int = 5) -> None:
+    """Device time by kernel over a few steps of ``fn``: the table goes to
+    chiprun_out/profile_{label}.txt, a summary line (device busy share, the
+    port's kernels' share) to stdout."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
-    step(batch)
+    fn()
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as p:
         t0 = time.perf_counter()
         for _ in range(steps):
-            step(batch)
+            fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / steps
     events = p.key_averages()
@@ -362,21 +646,35 @@ def profile(step, batch, B, steps: int = 5) -> None:
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
     device = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    sa_ms = sum(e.self_device_time_total for e in kernels
-                if "sa_group_kernel" in e.key or "sa_mlp_max_kernel" in e.key
-                ) / 1e3 / steps
-    print(f"profile [bf16, batch {B}]: wall {wall:.3f} ms/step, device "
-          f"{device:.3f} ms/step (busy {device / wall:.3f}), set-abstraction "
-          f"kernels {sa_ms:.3f} ms/step ({sa_ms / device:.3f} of device)")
+    own_ms = sum(e.self_device_time_total for e in kernels
+                 if "sa_group_kernel" in e.key or "sa_mlp_max_kernel" in e.key
+                 ) / 1e3 / steps
+    print(f"profile [{label}]: wall {wall:.3f} ms/step, device "
+          f"{device:.3f} ms/step (busy {device / wall:.3f}), the port's "
+          f"kernels {own_ms:.3f} ms/step ({own_ms / device:.3f} of device)")
+    # operators (not kernels) by their kernels' device time, and the
+    # optimizer's annotated range, per step
+    ops = sorted((e for e in events if e.device_type != DeviceType.CUDA
+                  and e.self_device_time_total > 0),
+                 key=lambda e: e.self_device_time_total, reverse=True)
+    print(f"profile [{label}] device ms/step by operator: " + ", ".join(
+        f"{e.key} {e.self_device_time_total / 1e3 / steps:.3f} "
+        f"({e.count // steps} calls)" for e in ops[:10]))
+    host = sorted((e for e in events if e.device_type != DeviceType.CUDA),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    print(f"profile [{label}] host ms/step by operator: " + ", ".join(
+        f"{e.key} {e.self_cpu_time_total / 1e3 / steps:.3f}"
+        for e in host[:8]))
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, f"profile_eval_bf16_b{B}.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, f"profile_{label}.txt"), "w") as f:
         f.write(events.table(sort_by="self_cuda_time_total", row_limit=60))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile bf16 eval steps at batch 8 and 32")
+                    help="also profile bf16 eval steps at batch 8 and 32 "
+                         "and bf16 train steps at batch 8")
     args = ap.parse_args()
     try:
         import torch
@@ -411,6 +709,9 @@ def main() -> int:
     cfg, dev = Config(), torch.device("cuda")     # bf16, the default
     steps = kernel_phase(cfg, dev)
     launches = eval_phase(args, card, cfg, dev)
+    launches.update({n: v for n, v in train_phase(args, card, cfg, dev).items()
+                     if n in TRAIN_KERNELS})
+    train_check_phase(cfg, dev)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

@@ -16,7 +16,9 @@ chosen by the type of the port module at that path, with the rules of
   L2Norm                       weight -> weight
 
 Every flax leaf and every port parameter or running statistic must be used
-exactly once, or the call raises.
+exactly once, or the call raises.  ``params_from_flax`` applies the same
+mapping to any tree shaped like the ``params`` collection (gradients, Adam
+moments), so such trees compare leaf by leaf with the port's.
 """
 
 from __future__ import annotations
@@ -85,8 +87,9 @@ def _rule(module: nn.Module):
     raise ValueError(f"convert: no layout rule for {type(module).__name__}")
 
 
-def from_flax(variables, model: nn.Module) -> Dict[str, torch.Tensor]:
-    """The port's ``state_dict`` for ``model`` from flax ``variables``."""
+def _convert(variables, model: nn.Module) -> Dict[str, torch.Tensor]:
+    """Every leaf of ``variables`` ({"params": ..., "batch_stats": ...},
+    either may be missing) under the port's name, in its layout."""
     target = model.state_dict()
     out: Dict[str, torch.Tensor] = {}
     for (collection, *mod_path, leaf), value in _leaves(
@@ -113,12 +116,32 @@ def from_flax(variables, model: nn.Module) -> Dict[str, torch.Tensor]:
                              f"flax {collection}/{name}/{leaf} gives "
                              f"{tuple(arr.shape)}")
         out[key] = torch.from_numpy(arr).to(ref.dtype)
-    # the step counters of BatchNorm have no flax counterpart
-    missing = [k for k in target
-               if k not in out and not k.endswith("num_batches_tracked")]
+    return out
+
+
+def _require(out: Dict[str, torch.Tensor], keys, what: str) -> None:
+    missing = [k for k in keys if k not in out]
     if missing:
-        raise ValueError(f"convert: {len(missing)} port entries not set by "
+        raise ValueError(f"convert: {len(missing)} port {what} not set by "
                          f"the flax tree, e.g. {missing[:5]}")
+
+
+def from_flax(variables, model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` for ``model`` from flax ``variables``."""
+    out = _convert(variables, model)
+    target = model.state_dict()
+    # the step counters of BatchNorm have no flax counterpart
+    _require(out, [k for k in target if not k.endswith("num_batches_tracked")],
+             "entries")
     for k, v in target.items():
         out.setdefault(k, v.clone())
+    return out
+
+
+def params_from_flax(params, model: nn.Module) -> Dict[str, torch.Tensor]:
+    """Any tree shaped like the flax ``params`` collection (parameters,
+    gradients, optimizer moments) -> {port parameter name: tensor} in the
+    port's layouts, one entry per ``model.named_parameters()``."""
+    out = _convert({"params": params}, model)
+    _require(out, [k for k, _ in model.named_parameters()], "parameters")
     return out

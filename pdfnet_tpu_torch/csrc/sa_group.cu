@@ -2,15 +2,19 @@
 // neighbour-row gather, center subtraction and ball-query substitution.
 //
 // Replaces the TPU kernels
-//   _knn_gather_block_kernel  pdfnet_tpu/ops/pallas_knn.py:172  (level 1)
+//   _knn_gather_block_kernel  pdfnet_tpu/ops/pallas_knn.py:172  (eval, level 1)
 //   _knn_gather_feat_kernel   pdfnet_tpu/ops/pallas_knn.py:107  (level 2)
-// Both compute the same function on rows of width C (C == 3 at level 1):
+//   _knn_gather_kernel        pdfnet_tpu/ops/pallas_knn.py:82   (train, level 1)
+// All compute one function on rows of width C (C == 3 at level 1):
 //   for each of the first S rows (the centers) of a hand's (N, C) feature
 //   block, select the k rows with the smallest exact float32
 //   d2 = (dx*dx + dy*dy) + dz*dz over the first three channels, ascending,
 //   the lower index winning ties; emit row - center in the xyz channels, or,
 //   where d2 > r2, the center's own row with zero xyz.  At level 1 that
-//   substitute is all zeros, as the TPU kernel writes.
+//   substitute is all zeros, as the TPU kernel writes.  The train path's
+//   entry points also write each neighbour's index and d2, and its level-1
+//   entry point skips the substitution (the caller applies it, as
+//   knn_gather_xyz_pallas leaves it to _fused_group_pallas).
 //
 // Design: one warp per center, eight centers per block.  The hand's xyz is
 // staged in shared memory (12 KB at N = 1024); each lane keeps N/32
@@ -19,13 +23,18 @@
 // device memory.  The products and sums use __fmul_rn/__fadd_rn so the
 // compiler cannot contract them into FMAs: selection then matches the plain
 // version bit for bit, ties and points exactly on the radius included.
+// Distances are ranked by their bit patterns as unsigned integers (the
+// order of non-negative floats), with NaN above +inf, which is the order of
+// the plain version's stable sort: a non-finite cloud selects real rows
+// instead of reading past the hand.
 //
-// Bound on the H100: the output write (H*S*k*C elements) against ~8 flops
-// per (center, point) pair; at the eval shapes the bytes dominate.
+// Bound on the H100: the output write (H*S*k*C elements, plus 8 bytes of
+// index and distance per neighbour on the train path) against ~9 float32
+// operations per (center, point) pair; at the main path's shapes the bytes
+// dominate, and the k rounds of shuffles, not either bound, set the time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math_constants.h>
 
 #include <cstdint>
 
@@ -34,6 +43,8 @@ namespace {
 constexpr int kWarps = 8;        // centers per block
 constexpr int kPerLane = 32;     // distances per lane: N <= 1024
 constexpr int kMaxPoints = 32 * kPerLane;
+constexpr unsigned kNaNKey = 0x7fc00000u;   // canonical NaN, above +inf
+constexpr unsigned kTaken = 0xffffffffu;    // selected, or past the hand
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -48,10 +59,13 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-template <typename T>
+// kSel: also write idx (int32) and d2 (float32) per neighbour.
+// kBall: substitute out-of-ball neighbours (else always row - center).
+template <typename T, bool kSel, bool kBall>
 __global__ void __launch_bounds__(kWarps * 32)
-sa_group_kernel(const T* __restrict__ feat, T* __restrict__ out, int N, int C,
-                int S, int K, float r2) {
+sa_group_kernel(const T* __restrict__ feat, T* __restrict__ out,
+                int32_t* __restrict__ idx_out, float* __restrict__ dist_out,
+                int N, int C, int S, int K, float r2) {
   extern __shared__ float sxyz[];  // (N, 3) float32
   const int h = blockIdx.y;
   const T* fh = feat + static_cast<int64_t>(h) * N * C;
@@ -70,7 +84,7 @@ sa_group_kernel(const T* __restrict__ feat, T* __restrict__ out, int N, int C,
   const float cy = sxyz[3 * s + 1];
   const float cz = sxyz[3 * s + 2];
 
-  float d[kPerLane];
+  unsigned key[kPerLane];
 #pragma unroll
   for (int j = 0; j < kPerLane; ++j) {
     const int n = j * 32 + lane;
@@ -78,29 +92,31 @@ sa_group_kernel(const T* __restrict__ feat, T* __restrict__ out, int N, int C,
       const float dx = __fsub_rn(sxyz[3 * n + 0], cx);
       const float dy = __fsub_rn(sxyz[3 * n + 1], cy);
       const float dz = __fsub_rn(sxyz[3 * n + 2], cz);
-      d[j] = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                       __fmul_rn(dz, dz));
+      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                                __fmul_rn(dz, dz));
+      key[j] = d != d ? kNaNKey : __float_as_uint(d);
     } else {
-      d[j] = CUDART_INF_F;
+      key[j] = kTaken;
     }
   }
 
   const T* crow = fh + static_cast<int64_t>(s) * C;
-  T* orow = out + (static_cast<int64_t>(h) * S + s) * K * C;
+  const int64_t row0 = (static_cast<int64_t>(h) * S + s) * K;
+  T* orow = out + row0 * C;
   for (int r = 0; r < K; ++r) {
     // lane-local argmin; ascending j keeps the lowest index on ties
-    float best = CUDART_INF_F;
+    unsigned best = kTaken;
     int bi = 0x7fffffff;
 #pragma unroll
     for (int j = 0; j < kPerLane; ++j) {
-      if (d[j] < best) {
-        best = d[j];
+      if (key[j] < best) {
+        best = key[j];
         bi = j * 32 + lane;
       }
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
-      const float ob = __shfl_xor_sync(0xffffffffu, best, off);
+      const unsigned ob = __shfl_xor_sync(0xffffffffu, best, off);
       const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
       if (ob < best || (ob == best && oi < bi)) {
         best = ob;
@@ -109,11 +125,16 @@ sa_group_kernel(const T* __restrict__ feat, T* __restrict__ out, int N, int C,
     }
 #pragma unroll
     for (int j = 0; j < kPerLane; ++j) {
-      if (j * 32 + lane == bi) d[j] = CUDART_INF_F;
+      if (j * 32 + lane == bi) key[j] = kTaken;
     }
 
+    const float d = __uint_as_float(best);
+    if (kSel && lane == 0) {
+      idx_out[row0 + r] = bi;
+      dist_out[row0 + r] = d;
+    }
     T* o = orow + static_cast<int64_t>(r) * C;
-    if (best <= r2) {
+    if (!kBall || d <= r2) {
       const T* src = fh + static_cast<int64_t>(bi) * C;
       for (int ch = lane; ch < C; ch += 32) {
         if (ch < 3) {
@@ -131,33 +152,57 @@ sa_group_kernel(const T* __restrict__ feat, T* __restrict__ out, int N, int C,
   }
 }
 
-template <typename T>
-int launch(const void* feat, void* out, int H, int N, int C, int S, int K,
-           float r2, void* stream) {
+template <typename T, bool kSel, bool kBall>
+int launch(const void* feat, void* out, void* idx, void* dist, int H, int N,
+           int C, int S, int K, float r2, void* stream) {
   if (H < 1 || N < 1 || N > kMaxPoints || C < 3 || S < 1 || S > N || K < 1 ||
       K > N) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   dim3 grid((S + kWarps - 1) / kWarps, H);
   const size_t smem = static_cast<size_t>(N) * 3 * sizeof(float);
-  sa_group_kernel<T><<<grid, kWarps * 32, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(feat), static_cast<T*>(out), N, C, S, K, r2);
+  sa_group_kernel<T, kSel, kBall><<<grid, kWarps * 32, smem,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(feat), static_cast<T*>(out),
+      static_cast<int32_t*>(idx), static_cast<float*>(dist), N, C, S, K, r2);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Level 1: points (H, N, 3) float32 -> out (H, S, K, 3) float32.
+// Eval, level 1: points (H, N, 3) float32 -> out (H, S, K, 3) float32.
 extern "C" int sa_group_l1(const void* points, void* out, int H, int N, int S,
                            int K, float r2, void* stream) {
-  return launch<float>(points, out, H, N, 3, S, K, r2, stream);
+  return launch<float, false, true>(points, out, nullptr, nullptr, H, N, 3, S,
+                                    K, r2, stream);
 }
 
-// Level 2: feat (H, N, C) float32 (bf16 == 0) or bfloat16 (bf16 == 1)
+// Eval, level 2: feat (H, N, C) float32 (bf16 == 0) or bfloat16 (bf16 == 1)
 // -> out (H, S, K, C) of the same type.
 extern "C" int sa_group_l2(const void* feat, void* out, int H, int N, int C,
                            int S, int K, float r2, int bf16, void* stream) {
-  return bf16 ? launch<__nv_bfloat16>(feat, out, H, N, C, S, K, r2, stream)
-              : launch<float>(feat, out, H, N, C, S, K, r2, stream);
+  return bf16 ? launch<__nv_bfloat16, false, true>(feat, out, nullptr, nullptr,
+                                                   H, N, C, S, K, r2, stream)
+              : launch<float, false, true>(feat, out, nullptr, nullptr, H, N,
+                                           C, S, K, r2, stream);
+}
+
+// Train, level 1: points (H, N, 3) float32 -> dist (H, S, K) float32,
+// idx (H, S, K) int32, nbr (H, S, K, 3) float32 centered, not substituted.
+extern "C" int knn_group_xyz(const void* points, void* dist, void* idx,
+                             void* nbr, int H, int N, int S, int K,
+                             void* stream) {
+  return launch<float, true, false>(points, nbr, idx, dist, H, N, 3, S, K,
+                                    0.0f, stream);
+}
+
+// Train, level 2: sa_group_l2's output plus idx (H, S, K) int32 and
+// dist (H, S, K) float32.
+extern "C" int group_feat(const void* feat, void* out, void* idx, void* dist,
+                          int H, int N, int C, int S, int K, float r2,
+                          int bf16, void* stream) {
+  return bf16 ? launch<__nv_bfloat16, true, true>(feat, out, idx, dist, H, N,
+                                                  C, S, K, r2, stream)
+              : launch<float, true, true>(feat, out, idx, dist, H, N, C, S, K,
+                                          r2, stream);
 }

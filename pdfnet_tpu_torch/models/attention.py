@@ -3,7 +3,8 @@
 inter_attn.py:38-125).
 
 Token counts are tiny (<= 252 vertices), so attention is a plain matmul +
-softmax, like the JAX einsums.  Eval only: dropout is the identity.
+softmax, like the JAX einsums.  Dropout (on the attention weights and on the
+projected output, ``attention.py:51,54,104-105``) acts at train time only.
 ``ImgAttn`` (``use_img_attn``, off by default) is later work.
 """
 
@@ -12,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from pdfnet_tpu_torch.models.layers import LN_EPS, MLPResBlock
+from pdfnet_tpu_torch.models.layers import Dropout, LN_EPS, MLPResBlock
 
 
 def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -25,13 +26,13 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(B, V, H * D)
 
 
-def _attend(q, k, v, d_q: int) -> torch.Tensor:
-    a = torch.softmax(q @ k.transpose(-1, -2) / (d_q ** 0.5), dim=-1)
+def _attend(q, k, v, d_q: int, drop: Dropout) -> torch.Tensor:
+    a = drop(torch.softmax(q @ k.transpose(-1, -2) / (d_q ** 0.5), dim=-1))
     return _merge_heads(a @ v)
 
 
 class SelfAttn(nn.Module):
-    def __init__(self, f_dim: int, n_heads: int = 4):
+    def __init__(self, f_dim: int, n_heads: int = 4, dropout: float = 0.1):
         super().__init__()
         self.n_heads = n_heads
         self.d_q = f_dim // n_heads
@@ -40,33 +41,43 @@ class SelfAttn(nn.Module):
         self.wk = nn.Linear(f_dim, n_heads * self.d_q)
         self.wv = nn.Linear(f_dim, n_heads * self.d_q)
         self.fc = nn.Linear(n_heads * self.d_q, f_dim)
-        self.ff = MLPResBlock(f_dim, f_dim)
+        self.ff = MLPResBlock(f_dim, f_dim, dropout)
+        self.drop_attn = Dropout(dropout)
+        self.drop_out = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.ln(x)
         q, k, v = (_split_heads(w(h), self.n_heads)
                    for w in (self.wq, self.wk, self.wv))
-        return self.ff(x + self.fc(_attend(q, k, v, self.d_q)))
+        out = self.fc(_attend(q, k, v, self.d_q, self.drop_attn))
+        return self.ff(x + self.drop_out(out))
 
 
 class InterAttn(nn.Module):
     """Self-attention per hand, then bidirectional cross-hand attention with
     q/k/v/out projections shared between the two directions."""
 
-    def __init__(self, f_dim: int, n_heads: int = 4):
+    def __init__(self, f_dim: int, n_heads: int = 4, dropout: float = 0.1):
         super().__init__()
         self.n_heads = n_heads
         self.d_q = f_dim // n_heads
-        self.self_L = SelfAttn(f_dim, n_heads)
-        self.self_R = SelfAttn(f_dim, n_heads)
+        self.self_L = SelfAttn(f_dim, n_heads, dropout)
+        self.self_R = SelfAttn(f_dim, n_heads, dropout)
         self.wq = nn.Linear(f_dim, n_heads * self.d_q)
         self.wk = nn.Linear(f_dim, n_heads * self.d_q)
         self.wv = nn.Linear(f_dim, n_heads * self.d_q)
         self.fc = nn.Linear(n_heads * self.d_q, f_dim)
         self.ln_L = nn.LayerNorm(f_dim, eps=LN_EPS)
         self.ln_R = nn.LayerNorm(f_dim, eps=LN_EPS)
-        self.ffL = MLPResBlock(f_dim, f_dim)
-        self.ffR = MLPResBlock(f_dim, f_dim)
+        self.ffL = MLPResBlock(f_dim, f_dim, dropout)
+        self.ffR = MLPResBlock(f_dim, f_dim, dropout)
+        # one module each, drawing anew per use, as flax shares them
+        self.drop_attn = Dropout(dropout)
+        self.drop_out = Dropout(dropout)
+
+    def _cross(self, q, k, v):
+        return self.drop_out(self.fc(_attend(q, k, v, self.d_q,
+                                             self.drop_attn)))
 
     def forward(self, Lf: torch.Tensor, Rf: torch.Tensor):
         Lf, Rf = self.self_L(Lf), self.self_R(Rf)
@@ -76,6 +87,6 @@ class InterAttn(nn.Module):
         Rq, Rk, Rv = (_split_heads(w(R2), self.n_heads)
                       for w in (self.wq, self.wk, self.wv))
         # L queries attend R keys/values: feat_R2L flows into the left hand
-        feat_R2L = self.fc(_attend(Lq, Rk, Rv, self.d_q))
-        feat_L2R = self.fc(_attend(Rq, Lk, Lv, self.d_q))
+        feat_R2L = self._cross(Lq, Rk, Rv)
+        feat_L2R = self._cross(Rq, Lk, Lv)
         return self.ffL(Lf + feat_R2L), self.ffR(Rf + feat_L2R)

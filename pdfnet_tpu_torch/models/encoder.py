@@ -69,10 +69,12 @@ class FPNEncoder(nn.Module):
         self.sft = SFTLayer(1024, 1024)
 
     def forward(self, img: torch.Tensor, cloud: torch.Tensor,
-                choose: torch.Tensor, aux: bool = True):
+                choose: torch.Tensor, ind: Optional[torch.Tensor] = None,
+                aux: bool = True):
         """img (B, 3, H, W) normalized RGB, cloud (B, 2, N, 3), choose
-        (B, 2, N); the hand centers ``ind`` (B, 2) are decoded from the
-        predicted heatmap, as the JAX module does at test time.
+        (B, 2, N), ind (B, 2) the hand centers' flat indices (the ground
+        truth at train time) or None to decode them from the predicted
+        heatmap, as the JAX module does at test time.
 
         Returns (hms, mask, ret, ind, img_fmaps, hms_fmaps, dp_fmaps) like the
         JAX module; with ``aux=False`` hms, mask and both fmaps lists are
@@ -89,9 +91,10 @@ class FPNEncoder(nn.Module):
 
         ret = {h: getattr(self, f"head_{h}")(x0) for h in self.head_names
                if aux or _IS_HM(h)}
-        hm = ret["hm"].detach().permute(0, 2, 3, 1)
-        ind = decode_centers(hm if self.raw_center_decode
-                             else clamped_sigmoid(hm))
+        if ind is None:
+            hm = ret["hm"].detach().permute(0, 2, 3, 1)
+            ind = decode_centers(hm if self.raw_center_decode
+                                 else clamped_sigmoid(hm))
 
         hms = mask = hms_fmaps = dp_fmaps = None
         if aux:

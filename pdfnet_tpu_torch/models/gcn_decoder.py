@@ -4,7 +4,9 @@ model_attn/gcn.py, model_attn/DualGraph.py).
 
 Runs in float32 (the JAX decoder's dtype) whatever the encoder's compute
 dtype.  The JAX ``stacked_decoder`` eval form only regroups the same math
-over a stacked hand axis; here the two hands simply run one after the other.
+over a stacked hand axis; here the two hands simply run one after the other,
+as the JAX modules do at train time.  Dropout (``Config.dropout``) acts at
+train time only.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from torch import nn
 
 from pdfnet_tpu_torch import assets
 from pdfnet_tpu_torch.models.attention import InterAttn
-from pdfnet_tpu_torch.models.layers import LN_EPS
+from pdfnet_tpu_torch.models.layers import Dropout, LN_EPS
 from pdfnet_tpu_torch.ops.chebconv import cheb_basis
 from pdfnet_tpu_torch.ops.geometry import orthographic_project
 from pdfnet_tpu_torch.ops.resize import upsample2x_nearest
@@ -35,10 +37,11 @@ def graph_avg_pool(x: torch.Tensor, p: int) -> torch.Tensor:
 
 
 class GCNResBlock(nn.Module):
-    """cheb(x) -> fc1 -> relu(LN) -> cheb -> fc2, plus a Linear shortcut,
-    -> LN (the live reference dataflow, gcn.py:100-108)."""
+    """cheb(x) -> fc1 -> relu(LN) -> cheb -> fc2 -> dropout, plus a Linear
+    shortcut, -> LN (the live reference dataflow, gcn.py:100-108)."""
 
-    def __init__(self, in_dim: int, out_dim: int, graph_k: int = 2):
+    def __init__(self, in_dim: int, out_dim: int, graph_k: int = 2,
+                 dropout: float = 0.05):
         super().__init__()
         self.graph_k = graph_k
         self.fc1 = nn.Linear(in_dim * graph_k, out_dim)
@@ -46,24 +49,25 @@ class GCNResBlock(nn.Module):
         self.fc2 = nn.Linear(out_dim * graph_k, out_dim)
         self.shortcut = nn.Linear(in_dim, out_dim)
         self.norm3 = nn.LayerNorm(out_dim, eps=LN_EPS)
+        self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
         y = self.fc1(cheb_basis(x, L, self.graph_k))
         y = F.relu(self.norm2(y))
-        y = self.fc2(cheb_basis(y, L, self.graph_k))
+        y = self.drop(self.fc2(cheb_basis(y, L, self.graph_k)))
         return self.norm3(y + self.shortcut(x))
 
 
 class GraphLayer(nn.Module):
     def __init__(self, in_dim: int, out_dim: int, graph_L: np.ndarray,
-                 graph_k: int = 2, num_blocks: int = 4):
+                 graph_k: int = 2, num_blocks: int = 4, dropout: float = 0.05):
         super().__init__()
         self.num_blocks = num_blocks
         self.register_buffer("L", torch.as_tensor(graph_L, dtype=torch.float32),
                              persistent=False)
         for i in range(num_blocks):
             self.add_module(f"block{i}", GCNResBlock(
-                in_dim if i == 0 else out_dim, out_dim, graph_k))
+                in_dim if i == 0 else out_dim, out_dim, graph_k, dropout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.num_blocks):
@@ -78,15 +82,16 @@ class DualGraphLayer(nn.Module):
 
     def __init__(self, in_dim: int, out_dim: int, graph_L_left: np.ndarray,
                  graph_L_right: np.ndarray, graph_k: int = 2,
-                 num_blocks: int = 4, n_heads: int = 4):
+                 num_blocks: int = 4, n_heads: int = 4,
+                 dropout: float = 0.05):
         super().__init__()
         V = graph_L_left.shape[0]
         self.pos_emb = nn.Embedding(V, in_dim)
         self.graph_left = GraphLayer(in_dim, out_dim, graph_L_left, graph_k,
-                                     num_blocks)
+                                     num_blocks, dropout)
         self.graph_right = GraphLayer(in_dim, out_dim, graph_L_right, graph_k,
-                                      num_blocks)
-        self.inter_attn = InterAttn(out_dim, n_heads)
+                                      num_blocks, dropout)
+        self.inter_attn = InterAttn(out_dim, n_heads, dropout)
 
     def forward(self, Lf: torch.Tensor, Rf: torch.Tensor):
         pos = self.pos_emb.weight[None]
@@ -103,7 +108,7 @@ class MeshDecoder(nn.Module):
                  gcn_in_dim: Sequence[int] = (512, 256, 128),
                  gcn_out_dim: Sequence[int] = (256, 128, 64),
                  graph_k: int = 2, num_blocks: int = 4, n_heads: int = 4,
-                 img_size_px: int = 384):
+                 dropout: float = 0.05, img_size_px: int = 384):
         super().__init__()
         gl, gr = assets.load_graph("left"), assets.load_graph("right")
         extras = assets.load_mesh_extras()
@@ -133,7 +138,7 @@ class MeshDecoder(nn.Module):
         for i in range(3):
             self.add_module(f"level{i}", DualGraphLayer(
                 gcn_in_dim[i], gcn_out_dim[i], gl.laplacians[i],
-                gr.laplacians[i], graph_k, num_blocks, n_heads))
+                gr.laplacians[i], graph_k, num_blocks, n_heads, dropout))
         v_out = gl.laplacians[2].shape[0]                     # 252
         self.unsample = nn.Linear(v_out, 778, bias=False)
         self.coord_head = nn.Linear(gcn_out_dim[-1], 3)

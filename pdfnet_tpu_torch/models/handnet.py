@@ -2,13 +2,17 @@
 (port of ``pdfnet_tpu/models/handnet.py:28-114`` with host-built clouds;
 reference HandNET_GCN, intaghand_model.py:14-47).
 
-The self-contained serving path (``choose=None``: clouds built from the
-predicted mask) is the next slice of the port.
+The module's mode is the JAX ``train`` flag: in training mode BatchNorm
+uses batch statistics (unless ``Config.freeze_bn_stats``), dropout is live,
+the set abstraction takes its differentiable grouping path and every head
+and decoder runs.  The self-contained serving path (``choose=None``: clouds
+built from the predicted mask) is a later slice of the port.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -16,7 +20,8 @@ from torch import nn
 from pdfnet_tpu_torch.config import Config
 from pdfnet_tpu_torch.models.encoder import FPNEncoder, MidFusion
 from pdfnet_tpu_torch.models.gcn_decoder import MeshDecoder
-from pdfnet_tpu_torch.models.layers import CenterHead, L2Norm, StridedUpConv
+from pdfnet_tpu_torch.models.layers import (BatchNorm, CenterHead, Dropout,
+                                            L2Norm, StridedUpConv)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -50,32 +55,46 @@ class HandNet(nn.Module):
             global_feature_dim=1024, gcn_in_dim=tuple(cfg.gcn_in_dim),
             gcn_out_dim=tuple(cfg.gcn_out_dim), graph_k=cfg.graph_k,
             num_blocks=cfg.graph_layer_num, n_heads=cfg.num_attn_heads,
-            img_size_px=cfg.default_resolution)
+            dropout=cfg.dropout, img_size_px=cfg.default_resolution)
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.frozen = cfg.freeze_bn_stats
+        self._dropouts = [m for m in self.modules() if isinstance(m, Dropout)]
 
     def forward(self, img: torch.Tensor, choose: torch.Tensor,
-                cloud: torch.Tensor):
+                cloud: torch.Tensor, ind: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         """img (B, H, W, 3) normalized RGB (NHWC, as the JAX model takes it),
-        choose (B, 2, N) flat pixel indices, cloud (B, 2, N, 3); the hand
-        centers are decoded from the predicted heatmap.
+        choose (B, 2, N) flat pixel indices, cloud (B, 2, N, 3), ind (B, 2)
+        the hand centers' flat indices on the /4 grid (the ground truth at
+        train time) or None to decode them from the predicted heatmap;
+        ``generator`` feeds dropout at train time.
 
-        Returns (result, params, hand_dicts, other) as the JAX model does at
-        eval, without what the eval outputs never read: ``other`` has no
-        hms/mask and ``ret`` holds only the heatmap head.
+        Returns (result, params, hand_dicts, other) as the JAX model does.
+        In training mode ``other`` holds ``hms``, ``mask`` and every head of
+        ``ret`` in float32 (NHWC); at eval it leaves out what the eval
+        outputs never read: no hms/mask, and only the heatmap head.
         """
         cfg = self.cfg
+        for m in self._dropouts:
+            m.generator = generator
         with torch.autocast(img.device.type, dtype=torch.bfloat16,
                             enabled=cfg.compute_dtype == "bfloat16"):
-            _, _, ret, ind, img_fmaps, hms_fmaps, dp_fmaps = self.encoder(
-                img.permute(0, 3, 1, 2), cloud.float(), choose, aux=False)
+            hms, mask, ret, ind, img_fmaps, hms_fmaps, dp_fmaps = self.encoder(
+                img.permute(0, 3, 1, 2), cloud.float(), choose, ind,
+                aux=self.training)
+            # the fmaps feed only ImgAttn, which is off (use_img_attn=False);
+            # at train time their BatchNorms still update, as in flax
             gf_left, gf_right, _fmaps = self.mid(img_fmaps, hms_fmaps,
                                                  dp_fmaps)
-        # the mesh decoder stays float32 (Config.mesh_dtype); the mid fmaps
-        # feed only ImgAttn, which is off (use_img_attn=False)
+        # the mesh decoder stays float32 (Config.mesh_dtype)
         result, params, hand_dicts, other = self.decoder(gf_left.float(),
                                                          gf_right.float())
-        other["ret"] = {k: v.float().permute(0, 2, 3, 1)
-                        for k, v in ret.items()}
+        nhwc = lambda t: t.float().permute(0, 2, 3, 1)
+        other["ret"] = {k: nhwc(v) for k, v in ret.items()}
         other["ind"] = ind
+        if hms is not None:
+            other["hms"], other["mask"] = nhwc(hms), nhwc(mask)
         return result, params, hand_dicts, other
 
 
@@ -112,7 +131,7 @@ def init_weights(model: HandNet, seed: int) -> None:
             m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             _lecun_normal_(m.weight, m.weight.shape[0], gen)
-        elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d, nn.LayerNorm)):
+        elif isinstance(m, (BatchNorm, nn.LayerNorm)):
             m.reset_parameters()
     for m in model.modules():
         if isinstance(m, CenterHead):

@@ -32,8 +32,73 @@ def conv(cin: int, cout: int, k: int, stride: int = 1, bias: bool = False,
                      padding=k // 2 if padding is None else padding, bias=bias)
 
 
-def bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=BN_EPS)
+class BatchNorm(nn.modules.batchnorm._BatchNorm):
+    """BatchNorm over dim 1 of (N, C, ...) with flax's rules (``nn.BatchNorm``
+    with ``momentum=0.9``, ``epsilon=1e-5``, float32 statistics).
+
+    - eval: the running statistics (``F.batch_norm``);
+    - train: the batch's float32 mean and its biased variance
+      ``max(E[x^2] - E[x]^2, 0)`` (flax's fast variance), normalized as
+      ``(x - mean) * (rsqrt(var + eps) * weight) + bias``; the running
+      statistics move by ``0.9 * old + (1 - 0.9) * new``, the biased variance
+      included, where ``torch.nn.BatchNorm*`` would use the unbiased one;
+    - ``frozen`` (``Config.freeze_bn_stats``): train-time normalization with
+      the running statistics, which stay as they are; weight and bias train.
+
+    At train time the output is float32, or the input's dtype with
+    ``keep_dtype`` (the ResNet's norms, whose flax dtype is the compute
+    dtype).
+    """
+
+    def __init__(self, c: int, keep_dtype: bool = False):
+        super().__init__(c, eps=BN_EPS)
+        self.keep_dtype = keep_dtype
+        self.frozen = False
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        xf = x.float()
+        if self.frozen:
+            mean, var = self.running_mean, self.running_var
+        else:
+            dims = [0, *range(2, x.dim())]
+            mean = xf.mean(dims)
+            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.running_mean.copy_(0.9 * self.running_mean
+                                        + (1 - 0.9) * mean)
+                self.running_var.copy_(0.9 * self.running_var
+                                       + (1 - 0.9) * var)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype) if self.keep_dtype else y
+
+
+def bn(c: int, keep_dtype: bool = False) -> BatchNorm:
+    return BatchNorm(c, keep_dtype)
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: at train time each element is kept with
+    probability 1 - p and scaled by 1 / (1 - p), else zeroed; the identity
+    at eval or p == 0.  The draws come from ``generator``, a
+    ``torch.Generator`` on the input's device that ``HandNet.forward`` sets
+    for each call (the default generator when none is set)."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
 class SFTLayer(nn.Module):
@@ -165,14 +230,17 @@ class CenterHead(nn.Module):
 
 
 class MLPResBlock(nn.Module):
-    """LayerNorm -> fc -> relu -> fc residual block (self_attn.py:18-34).
-    Eval only: the JAX module's dropout is the identity there."""
+    """LayerNorm -> fc -> relu -> dropout -> fc -> dropout residual block
+    (self_attn.py:18-34)."""
 
-    def __init__(self, dim: int, hid_dim: int):
+    def __init__(self, dim: int, hid_dim: int, dropout: float = 0.1):
         super().__init__()
         self.ln = nn.LayerNorm(dim, eps=LN_EPS)
         self.fc1 = nn.Linear(dim, hid_dim)
         self.fc2 = nn.Linear(hid_dim, dim)
+        self.drop1 = Dropout(dropout)
+        self.drop2 = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.fc2(F.relu(self.fc1(self.ln(x))))
+        y = self.drop1(F.relu(self.fc1(self.ln(x))))
+        return x + self.drop2(self.fc2(y))

@@ -2,10 +2,14 @@
 (port of ``pdfnet_tpu/models/pointnet.py``; reference PointNet_Plus,
 intaghand_encoder.py:32-159).
 
-Eval only.  Levels 1 and 2 run through ``ops.sa`` (the CUDA kernels on the
+At eval, levels 1 and 2 run through ``ops.sa`` (the CUDA kernels on the
 card, their plain versions on the CPU) with the BN-folded MLPs, which is the
-JAX package's ``knn_method="pallas_sa"`` eval path; level 3 is an ordinary
-Linear + BatchNorm + ReLU stack and a max over points.
+JAX package's ``knn_method="pallas_sa"`` eval path.  At train time (the
+module in training mode) they group through ``ops.grouping`` (kernels with
+custom backward passes) and run the unfolded ``PointMLP`` with live
+BatchNorm and a max over the k neighbours, as the JAX module does with
+``train=True`` (``pointnet.py:146-171``).  Level 3 is an ordinary Linear +
+BatchNorm + ReLU stack and a max over points.
 """
 
 from __future__ import annotations
@@ -16,8 +20,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pdfnet_tpu_torch.models.layers import BN_EPS, SFTLayer
+from pdfnet_tpu_torch.models.layers import BN_EPS, SFTLayer, bn
 from pdfnet_tpu_torch.ops.gather import gather_pixels_2d
+from pdfnet_tpu_torch.ops.grouping import group_points, group_points_level2
 from pdfnet_tpu_torch.ops.sa import sa_level1, sa_level2
 
 LEVEL1_MLP = (64, 64, 128)
@@ -33,7 +38,7 @@ class PointMLP(nn.Module):
         self.features = tuple(features)
         for i, f in enumerate(self.features):
             self.add_module(f"fc{i}", nn.Linear(cin, f))
-            self.add_module(f"bn{i}", nn.BatchNorm1d(f, eps=BN_EPS))
+            self.add_module(f"bn{i}", bn(f))
             cin = f
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -117,14 +122,24 @@ class PointNetPlus(nn.Module):
             nhwc[2], c_quart[:, :, :self.num_level2].reshape(B, -1))
             .reshape(B, H, self.num_level2, -1))
 
-        x = sa_level1(pts.float(), _fold_point_mlp(self.mlp1), self.knn_k,
-                      self.num_level1, self.ball_radius, self.compute_dtype)
-        x = torch.cat([pts[:, :self.num_level1, :3], x], dim=-1)
+        S1, S2, k = self.num_level1, self.num_level2, self.knn_k
+        if self.training:
+            grouped, _ = group_points(pts, k, S1, self.ball_radius)
+            x = self.mlp1(grouped).amax(dim=2)
+        else:
+            x = sa_level1(pts.float(), _fold_point_mlp(self.mlp1), k, S1,
+                          self.ball_radius, self.compute_dtype)
+        x = torch.cat([pts[:, :S1, :3], x], dim=-1)
         x = self.sft1(x, pw_l1)
 
-        x2 = sa_level2(x.float(), _fold_point_mlp(self.mlp2), self.knn_k,
-                       self.num_level2, self.ball_radius2, self.compute_dtype)
-        x = torch.cat([x[:, :self.num_level2, :3], x2], dim=-1)
+        if self.training:
+            grouped, _ = group_points_level2(x, S2, k, self.ball_radius2,
+                                             self.compute_dtype)
+            x2 = self.mlp2(grouped).amax(dim=2)
+        else:
+            x2 = sa_level2(x.float(), _fold_point_mlp(self.mlp2), k, S2,
+                           self.ball_radius2, self.compute_dtype)
+        x = torch.cat([x[:, :S2, :3], x2], dim=-1)
         x = self.sft2(x, pw_l2)
 
         x = self.mlp3(x).amax(dim=1)                              # (BH, 1024)

@@ -2,8 +2,9 @@
 
 Returns the post-stem feature (before the max-pool) and the four stage
 outputs, as the JAX module does.  Blocks are named ``layer{i}_{b}`` after the
-flax tree.  The JAX module's ``s2d_stem`` and ``fused_trunk`` variants are
-later work; both default to off.
+flax tree.  The norms keep the compute dtype at train time, as the flax
+ones do (``dtype=self.dtype``).  The JAX module's ``s2d_stem`` and
+``fused_trunk`` variants are later work; both default to off.
 """
 
 from __future__ import annotations
@@ -24,14 +25,14 @@ class Bottleneck(nn.Module):
         out_ch = width * 4
         self.project = project
         self.conv1 = conv(cin, width, 1)
-        self.bn1 = bn(width)
+        self.bn1 = bn(width, keep_dtype=True)
         self.conv2 = conv(width, width, 3, stride)
-        self.bn2 = bn(width)
+        self.bn2 = bn(width, keep_dtype=True)
         self.conv3 = conv(width, out_ch, 1)
-        self.bn3 = bn(out_ch)
+        self.bn3 = bn(out_ch, keep_dtype=True)
         if project:
             self.proj_conv = conv(cin, out_ch, 1, stride)
-            self.proj_bn = bn(out_ch)
+            self.proj_bn = bn(out_ch, keep_dtype=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shortcut = self.proj_bn(self.proj_conv(x)) if self.project else x
@@ -47,7 +48,7 @@ class ResNet(nn.Module):
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3)):
         super().__init__()
         self.conv1 = conv(3, 64, 7, 2, padding=3)
-        self.bn1 = bn(64)
+        self.bn1 = bn(64, keep_dtype=True)
         self.block_names = []
         cin = 64
         for i, (n_blocks, w) in enumerate(zip(stage_sizes, (64, 128, 256, 512))):

@@ -40,3 +40,11 @@ def gather_patches(fmap_nhwc: torch.Tensor, ind: torch.Tensor,
              & ((rx >= 0) & (rx < W))[..., None, :])
     return torch.where(valid[..., None], p, torch.zeros((), dtype=p.dtype,
                                                         device=p.device))
+
+
+def gather_pixels(fmap_nhwc: torch.Tensor, ind: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) map, (B, K) flat indices into the row-major H*W grid ->
+    (B, K, C)."""
+    B, H, W, C = fmap_nhwc.shape
+    b = torch.arange(B, device=fmap_nhwc.device)[:, None]
+    return fmap_nhwc.reshape(B, H * W, C)[b, ind.long()]

@@ -51,8 +51,12 @@ launches: Dict[str, int] = {"sa_group_l1": 0, "sa_group_l2": 0,
 Folded = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# every entry point of csrc/sa_group.cu; ops.grouping binds the last two
 _GROUP_SIGS = {"sa_group_l1": [_P, _P, _I, _I, _I, _I, _F, _P],
-               "sa_group_l2": [_P, _P, _I, _I, _I, _I, _I, _F, _I, _P]}
+               "sa_group_l2": [_P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+               "knn_group_xyz": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+               "group_feat": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                              _P]}
 _MLP_SIGS = {"sa_mlp_max": [_P, _I, _I, _I, _I, _I, _I, _I, _I,
                             _P, _P, _P, _P, _P, _P, _P, _P]}
 MAX_POINTS = 1024        # csrc/sa_group.cu: N/32 distances per lane
@@ -92,9 +96,10 @@ def _check_cuda(t: torch.Tensor, name: str, dtypes) -> None:
 # ---- plain versions --------------------------------------------------------
 
 def knn_plain(xyz: torch.Tensor, num_centers: int, k: int):
-    """The selection both grouping kernels make: for each of the first S
+    """The selection every grouping kernel makes: for each of the first S
     rows of xyz (H, N, 3) float32, the k nearest rows ascending, the lowest
-    index first among equal distances -> (dist (H, S, k), idx (H, S, k))."""
+    index first among equal distances (NaN after +inf) -> (dist (H, S, k),
+    idx (H, S, k))."""
     ctr = xyz[:, :num_centers]
     diff = xyz[:, None, :, :] - ctr[:, :, None, :]              # (H, S, N, 3)
     d2 = ((diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1])
@@ -104,13 +109,11 @@ def knn_plain(xyz: torch.Tensor, num_centers: int, k: int):
     return dist[..., :k], idx[..., :k]
 
 
-def group_plain(feat: torch.Tensor, num_centers: int, k: int,
-                radius2: float) -> torch.Tensor:
-    """Plain version of both grouping kernels.
-
+def group_select_plain(feat: torch.Tensor, num_centers: int, k: int,
+                       radius2: float):
+    """Plain version of the grouping kernels with the selection they make:
     feat (H, N, C), xyz in channels 0..2, float32 or bfloat16 ->
-    (H, S, k, C) of feat's dtype.
-    """
+    (grouped (H, S, k, C) of feat's dtype, dist (H, S, k), idx (H, S, k))."""
     H, N, C = feat.shape
     S = num_centers
     xyz = feat[..., :3].float()
@@ -122,7 +125,17 @@ def group_plain(feat: torch.Tensor, num_centers: int, k: int,
     own = feat[:, :S, None, :].clone()
     own[..., :3] = 0
     valid = (dist <= _f32(radius2))[..., None]
-    return torch.where(valid, rows, own.expand_as(rows))
+    return torch.where(valid, rows, own.expand_as(rows)), dist, idx
+
+
+def group_plain(feat: torch.Tensor, num_centers: int, k: int,
+                radius2: float) -> torch.Tensor:
+    """Plain version of both eval grouping kernels.
+
+    feat (H, N, C), xyz in channels 0..2, float32 or bfloat16 ->
+    (H, S, k, C) of feat's dtype.
+    """
+    return group_select_plain(feat, num_centers, k, radius2)[0]
 
 
 def mlp_max_plain(grouped: torch.Tensor, folded: Folded,

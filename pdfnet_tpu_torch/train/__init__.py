@@ -1,1 +1,1 @@
-"""Eval outputs and the eval step of the PyTorch port."""
+"""Loss, eval outputs, and the train and eval steps of the PyTorch port."""
