@@ -26,7 +26,15 @@ Phases, each of which fails the run:
    kernels' launch counts in one step, finite losses, parameters and
    BatchNorm statistics moved, samples/s in bfloat16 and float32; and a
    float32 step on the card against the CPU at batch 2 (frozen BatchNorm, no
-   dropout): every loss term and every parameter's gradient.
+   dropout): every loss term and every parameter's gradient;
+6. the self-contained RGB-D serving step (``infer_rgbd`` + ``eval_outputs``:
+   clouds built on the card from the predicted masks and the depth) at the
+   full width of the default ``Config`` with ``knn_method="pallas"`` and
+   ``fused_trunk=True``, on the bench's random batch: output shapes and
+   finiteness, the kernels' launch counts in one step, a float32 step on the
+   card against the CPU at batch 1 with deterministic sampling, and frames/s
+   in bfloat16 and float32 at batch 8 and 32 (and the default serving
+   config's bfloat16 rate at batch 8 beside them).
 
 TF32 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``), so every float32 number is true
@@ -72,6 +80,12 @@ GROUP_BWD_TOL = 1e-5
 LOSS_TOL = 1e-3
 GRAD_TOL = 5e-3
 TRAIN_WARMUP, TRAIN_ITERS = 3, 10
+# the fused bottleneck against its plain version, relative to the output's
+# largest magnitude: float32 sums of up to 2304 products in another order;
+# in bf16 a y1/y2 element rounded one bf16 step (2**-8) apart moves an
+# output by about that much of its scale
+TRUNK_TOL_F32 = 1e-4
+TRUNK_TOL_BF16 = 1e-2
 
 SOURCES = {"sa_group_l1": ("pdfnet_tpu_torch/csrc/sa_group.cu",
                            "pdfnet_tpu/ops/pallas_knn.py:172"),
@@ -82,9 +96,22 @@ SOURCES = {"sa_group_l1": ("pdfnet_tpu_torch/csrc/sa_group.cu",
            "knn_group_xyz": ("pdfnet_tpu_torch/csrc/sa_group.cu",
                              "pdfnet_tpu/ops/pallas_knn.py:82"),
            "group_feat": ("pdfnet_tpu_torch/csrc/sa_group.cu",
-                          "pdfnet_tpu/ops/pallas_knn.py:107")}
+                          "pdfnet_tpu/ops/pallas_knn.py:107"),
+           "knn": ("pdfnet_tpu_torch/csrc/sa_group.cu",
+                   "pdfnet_tpu/ops/pallas_knn.py:70"),
+           "fused_bottleneck_s1": ("pdfnet_tpu_torch/csrc/trunk_block.cu",
+                                   "pdfnet_tpu/ops/pallas_trunk.py:148"),
+           "fused_bottleneck_s2": ("pdfnet_tpu_torch/csrc/trunk_block.cu",
+                                   "pdfnet_tpu/ops/pallas_trunk.py:198")}
 EVAL_KERNELS = ("sa_group_l1", "sa_group_l2", "sa_mlp_max")
 TRAIN_KERNELS = ("knn_group_xyz", "group_feat")
+SERVE_KERNELS = ("knn", "fused_bottleneck_s1")
+# the ResNet-50 blocks at 384x384, batch 8: (name, H = W of the input, Cin,
+# Cw, stride); stride-1 blocks per serving step: 3 at layer2, 5 at layer3
+TRUNK_CASES = (("layer2_1", 48, 512, 128, 1), ("layer3_1", 24, 1024, 256, 1),
+               ("layer2_0", 96, 256, 128, 2), ("layer3_0", 48, 512, 256, 2),
+               ("layer4_0", 24, 1024, 512, 2))
+TRUNK_PER_STEP = {"layer2_1": 3, "layer3_1": 5}
 
 
 def fail(msg: str) -> int:
@@ -184,18 +211,21 @@ def kernel_phase(cfg, dev):
     w2 = folded_mlp(sa.MLP_WIDTHS[1], feat.shape[-1], gen, dev)
     steps = {}
 
-    def record(name, case, err, ms, plain_ms, bound, step_case):
+    def record(name, case, err, ms, plain_ms, bound, step_case, extra=""):
+        """step_case: how many times one step of the path makes this call
+        (True counts once); the JSON line sums the step's calls."""
         print(f"kernel {name} [{case}]: max_abs_err {err:.3e} ms {ms:.4f} "
               f"plain_ms {plain_ms:.4f} bound_ms {bound[0]:.4f} "
-              f"({bound[1]})")
+              f"({bound[1]}){extra}")
         if step_case:
+            n = int(step_case)
             s = steps.setdefault(name, dict(err=0.0, ms=0.0, plain=0.0,
                                             bound=0.0, by={}))
             s["err"] = max(s["err"], err)
-            s["ms"] += ms
-            s["plain"] += plain_ms
-            s["bound"] += bound[0]
-            s["by"][bound[1]] = s["by"].get(bound[1], 0.0) + bound[0]
+            s["ms"] += n * ms
+            s["plain"] += n * plain_ms
+            s["bound"] += n * bound[0]
+            s["by"][bound[1]] = s["by"].get(bound[1], 0.0) + n * bound[0]
 
     # sa_group_l1: float32 points, as on the main path
     got = sa.sa_group_l1(xyz, S1, k, r1)
@@ -298,6 +328,8 @@ def kernel_phase(cfg, dev):
                            selection=True), step_case)
 
     grouping_backward_check(cfg, xyz, feat, gen)
+    knn_check(cfg, xyz, record)
+    trunk_check(gen, dev, record)
     return steps
 
 
@@ -331,6 +363,129 @@ def grouping_backward_check(cfg, xyz, feat, gen) -> None:
               f"{scale:.3e})")
         check(err <= GROUP_BWD_TOL * scale,
               f"{name} backward on the card differs from the CPU ({err})")
+
+
+def knn_bound(H, N, S, k):
+    """(ms, bound_by): points and centers read once, each neighbour's int32
+    index and float32 d2 written once; d2 and one compare per (center,
+    point) pair at the float32 rate."""
+    bytes_ = (H * N + H * S) * 3 * 4 + H * S * k * 8
+    t_b, t_o = bytes_ / PEAK_BYTES * 1e3, H * S * N * 9 / PEAK_F32 * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def knn_check(cfg, xyz, record) -> None:
+    """``knn`` (K5) at both levels' shapes, its centers the first S rows as
+    the main path passes them: bit for bit against the plain version, with
+    exact ties (half the hands on a 1/256 grid) and a NaN/inf cloud."""
+    import torch
+    from pdfnet_tpu_torch.ops import sa
+
+    H, k = xyz.shape[0], cfg.knn_k
+    for level, N, S in ((1, cfg.sample_num, cfg.sample_num_level1),
+                        (2, cfg.sample_num_level1, cfg.sample_num_level2)):
+        pts = xyz[:, :N].contiguous()
+        ctr = pts[:, :S].contiguous()
+        dist, idx = sa.knn(ctr, pts, k)
+        want_d, want_i = sa.knn_select_plain(ctr, pts, k)
+        torch.cuda.synchronize()
+        check(torch.equal(dist, want_d) and torch.equal(idx.long(), want_i),
+              f"knn level {level} differs from its plain version")
+        ties = int((want_d[..., 1:] == want_d[..., :-1]).sum())
+        record("knn", f"level {level}", 0.0,
+               time_ms(lambda: sa.knn(ctr, pts, k)),
+               time_ms(lambda: sa.knn_select_plain(ctr, pts, k), iters=5),
+               knn_bound(H, N, S, k), True,
+               f"; bit-identical, {ties} exact ties among the neighbours")
+    bad = xyz[:2].clone()
+    bad[0, 5:40] = float("nan")
+    bad[1, 7] = float("inf")
+    ctr = bad[:, :cfg.sample_num_level1].contiguous()
+    for g, w in zip(sa.knn(ctr, bad, k), sa.knn_select_plain(ctr, bad, k)):
+        check(torch.equal(g.cpu().long() if not g.is_floating_point()
+                          else g.cpu().nan_to_num(7.0),
+                          w.cpu().long() if not w.is_floating_point()
+                          else w.cpu().nan_to_num(7.0)),
+              "knn differs from its plain version on a cloud with non-finite "
+              "points")
+    print("kernel knn: a cloud with NaN and inf points selects as the plain "
+          "version does")
+
+
+def trunk_bound(B, hw, Cin, Cw, stride, esize, bf16):
+    """(ms, bound_by): the map read once and the output written once, the
+    folded weights read once; 2 * (Cin*Cw + 9*Cw*Cw + Cw*Cout [+ Cin*Cout])
+    operations per output pixel at the compute dtype's rate."""
+    Ho, Cout, proj = hw // stride, 4 * Cw, stride == 2
+    wts = Cin * Cw + 9 * Cw * Cw + Cw * Cout + (Cin * Cout if proj else 0)
+    bytes_ = ((B * hw * hw * Cin + B * Ho * Ho * Cout + wts) * esize
+              + 4 * (2 * Cw + Cout * (2 if proj else 1)))
+    t_b = bytes_ / PEAK_BYTES * 1e3
+    t_o = 2 * B * Ho * Ho * wts / (PEAK_BF16 if bf16 else PEAK_F32) * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def random_bottleneck(cin, cw, stride, gen):
+    """A port ``Bottleneck`` with seeded weights and BatchNorm away from the
+    identity, in eval mode on the CPU."""
+    import torch
+    from pdfnet_tpu_torch.models.resnet import Bottleneck
+    block = Bottleneck(cin, cw, stride, project=stride == 2)
+    with torch.no_grad():
+        for m in block.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
+                               / m.weight[0].numel() ** 0.5)
+            elif isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                c = m.num_features
+                m.weight.copy_(torch.rand(c, generator=gen) + 0.5)
+                m.bias.copy_(torch.rand(c, generator=gen) * 0.6 - 0.3)
+                m.running_mean.copy_(torch.rand(c, generator=gen) * 0.6 - 0.3)
+                m.running_var.copy_(torch.rand(c, generator=gen) * 1.5 + 0.5)
+    return block.eval()
+
+
+def trunk_check(gen, dev, record) -> None:
+    """``fused_bottleneck`` (K6) at the ResNet-50 blocks' shapes at batch 8,
+    float32 and bf16, against its plain version; beside each, the port's
+    unfused eval ``Bottleneck`` (cuDNN convolutions) on the same map."""
+    import torch
+    from pdfnet_tpu_torch.ops import trunk
+
+    for name, hw, cin, cw, stride in TRUNK_CASES:
+        block = random_bottleneck(cin, cw, stride, gen).to(dev)
+        project = block.project
+        with torch.no_grad():
+            folded = trunk.fold_bottleneck(block)
+        x32 = torch.relu(torch.randn((BATCH, hw, hw, cin), generator=gen))
+        for dt in (torch.float32, torch.bfloat16):
+            bf16 = dt == torch.bfloat16
+            x = x32.to(dev, dt).contiguous()
+            got = trunk.fused_bottleneck(x, folded, stride, project)
+            want = trunk.fused_bottleneck_plain(x, folded, stride, project)
+            torch.cuda.synchronize()
+            scale = want.float().abs().max().item()
+            err = (got.float() - want.float()).abs().max().item()
+            tol = TRUNK_TOL_BF16 if bf16 else TRUNK_TOL_F32
+            check(err <= tol * scale, f"fused_bottleneck {name} [{dt}] "
+                  f"differs from its plain version by {err:.3e} (scale "
+                  f"{scale:.3e}, tolerance {tol} of it)")
+            nchw = x.permute(0, 3, 1, 2)         # a channels_last view
+            with torch.inference_mode(), torch.autocast(
+                    dev.type, dtype=torch.bfloat16, enabled=bf16):
+                unfused = time_ms(lambda: block(nchw))
+            per_step = (TRUNK_PER_STEP.get(name, 0) if stride == 1 else 1)
+            record(f"fused_bottleneck_s{stride}",
+                   f"{name} {str(dt).split('.')[-1]}", err,
+                   time_ms(lambda: trunk.fused_bottleneck(x, folded, stride,
+                                                          project)),
+                   time_ms(lambda: trunk.fused_bottleneck_plain(
+                       x, folded, stride, project), iters=5),
+                   trunk_bound(BATCH, hw, cin, cw, stride, x.element_size(),
+                               bf16), per_step if bf16 else 0,
+                   f"; scale {scale:.3e}; unfused Bottleneck (cuDNN) "
+                   f"{unfused:.4f} ms")
+        del block, folded, x32
 
 
 # ---- phase 4: the eval step ------------------------------------------------
@@ -382,7 +537,7 @@ def fps(step, batch, B, iters=20, warmup=3) -> float:
 def eval_phase(args, card, cfg, dev):
     import torch
     import pdfnet_tpu_torch as port
-    from pdfnet_tpu_torch.ops import grouping, sa
+    from pdfnet_tpu_torch.ops import grouping, sa, trunk
 
     cfg32 = cfg.replace(compute_dtype="float32")
     res, n = cfg.default_resolution, cfg.sample_num
@@ -394,18 +549,18 @@ def eval_phase(args, card, cfg, dev):
              for k, v in bench_batch(BATCH, res, n).items()}
 
     # the main path, once, through the user's entry points
-    sa.reset_launches()
-    grouping.reset_launches()
+    for m in (sa, grouping, trunk):
+        m.reset_launches()
     out = step(batch)
     torch.cuda.synchronize()
-    launches = {**sa.launches, **grouping.launches}
+    launches = {**sa.launches, **grouping.launches, **trunk.launches}
     print(f"eval step [bf16, batch {BATCH}] kernel launches: "
           f"{json.dumps(launches)}")
     check(all(launches[n] > 0 for n in EVAL_KERNELS),
           f"a kernel of the eval path was not launched: {launches}")
     check(sum(launches[n] for n in EVAL_KERNELS) == 4
-          and not any(launches[n] for n in TRAIN_KERNELS),
-          f"expected 4 eval launches and no train kernel: {launches}")
+          and not any(launches[n] for n in launches if n not in EVAL_KERNELS),
+          f"expected 4 eval launches and no other kernel: {launches}")
     shapes = {"verts_pred": (BATCH, 2, 778, 3), "joints_pred": (BATCH, 2, 21, 3),
               "verts_pred_off": (BATCH, 2, 778, 3),
               "joints_pred_off": (BATCH, 2, 21, 3),
@@ -461,7 +616,7 @@ def train_phase(args, card, cfg, dev):
     float32.  Returns the kernels' launches in one bf16 step."""
     import torch
     import pdfnet_tpu_torch as port
-    from pdfnet_tpu_torch.ops import grouping, sa
+    from pdfnet_tpu_torch.ops import grouping, sa, trunk
 
     t0 = time.perf_counter()
     host = port.make_batch(cfg, BATCH, seed=0)
@@ -486,16 +641,17 @@ def train_phase(args, card, cfg, dev):
         losses = []
         if launches is None:
             # the main path, once, through the user's entry points
-            sa.reset_launches()
-            grouping.reset_launches()
+            for m in (sa, grouping, trunk):
+                m.reset_launches()
             losses.append(run()["loss"])
             torch.cuda.synchronize()
-            launches = {**sa.launches, **grouping.launches}
+            launches = {**sa.launches, **grouping.launches, **trunk.launches}
             print(f"train step [bf16, batch {BATCH}] kernel launches: "
                   f"{json.dumps(launches)}")
             check(all(launches[n] == 1 for n in TRAIN_KERNELS)
-                  and not any(launches[n] for n in EVAL_KERNELS),
-                  f"expected one launch of each train kernel and no eval "
+                  and not any(launches[n] for n in launches
+                              if n not in TRAIN_KERNELS),
+                  f"expected one launch of each train kernel and no other "
                   f"kernel: {launches}")
         while len(losses) < TRAIN_WARMUP:
             losses.append(run()["loss"])
@@ -536,17 +692,36 @@ def train_check_phase(cfg, dev):
     The two sides compute the clouds' float32 xyz with other summation
     orders, so a neighbour on a tie or on the ball's radius can be selected
     on one side and not on the other, which moves its cotangent to another
-    row.  The CPU step therefore replays the card's neighbour selection
-    (the kernels' own agreement is checked bit for bit in the kernel phase),
-    and the flips are counted and printed."""
+    row.  Likewise a point-MLP activation within rounding of 0 can pass its
+    ReLU on one side only; when that point wins the max-pool for some
+    channels, it carries their whole gradient (seen: 9.6e-3 of a leaf's
+    largest entry, in some runs of the same inputs, as the card's float32
+    sums vary in their last bit between runs).  The CPU step therefore
+    replays the card's neighbour selection (the kernels' own agreement is
+    checked bit for bit in the kernel phase) and the ReLU decisions of the
+    point MLPs, and the flips are counted and printed."""
+    import types
     import torch
+    import torch.nn.functional as F
     import pdfnet_tpu_torch as port
+    from pdfnet_tpu_torch.models import pointnet
     from pdfnet_tpu_torch.ops import grouping, sa
 
     c = cfg.replace(compute_dtype="float32", freeze_bn_stats=True,
                     dropout=0.0)
     host = port.make_batch(c, 2, seed=1)
     chosen, flips = [], [0, 0]
+    relu_masks, relu_flips = [], [0, 0]
+
+    def record_relu(x):
+        relu_masks.append((x > 0).cpu())
+        return F.relu(x)
+
+    def replay_relu(x):
+        card = relu_masks.pop(0)
+        relu_flips[0] += int(((x > 0) != card).sum())
+        relu_flips[1] += card.numel()
+        return torch.where(card, x, 0.0)
     wrappers = {"knn_group_xyz": lambda out: (out[0], out[1]),
                 "group_feat": lambda out: (out[2], out[1])}
     originals = {n: getattr(grouping, n) for n in wrappers}
@@ -573,9 +748,12 @@ def train_check_phase(cfg, dev):
         step = port.make_train_step(c, model, port.load_loss_consts(d))
         if i == 0:
             patches = [(grouping, n, recording(n)) for n in wrappers]
+            patches.append((pointnet, "F",
+                            types.SimpleNamespace(relu=record_relu)))
         else:
             patches = [(grouping, "knn_plain", replay),
-                       (sa, "knn_plain", replay)]
+                       (sa, "knn_plain", replay),
+                       (pointnet, "F", types.SimpleNamespace(relu=replay_relu))]
         saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
         try:
             for m, n, fn in patches:
@@ -588,11 +766,14 @@ def train_check_phase(cfg, dev):
         runs.append(({k: v.cpu() for k, v in stats.items()},
                      {n: p.grad.cpu() for n, p in model.named_parameters()
                       if p.grad is not None}))
-    check(not chosen, "the CPU step grouped fewer times than the card's")
+    check(not chosen and not relu_masks,
+          "the CPU step grouped or ran a point-MLP ReLU fewer times than the "
+          "card's")
     print(f"train step [f32, batch 2]: the CPU's own neighbour selection "
           f"differs from the card's in {flips[0]} of {flips[1]} slots "
-          f"(float32 ties and radius crossings); the CPU step replays the "
-          f"card's")
+          f"(float32 ties and radius crossings), its point-MLP ReLU "
+          f"decisions in {relu_flips[0]} of {relu_flips[1]}; the CPU step "
+          f"replays the card's")
     (got_s, got_g), (want_s, want_g) = runs
     worst = 0.0
     for key, w in want_s.items():
@@ -625,6 +806,201 @@ def train_check_phase(cfg, dev):
           f"within {GRAD_TOL} of their scale")
 
 
+# ---- phase 6: the self-contained serving step ------------------------------
+
+SERVE_INPUTS = ("input", "depth", "K_new", "valid")
+
+
+def split_masks_(model, img) -> None:
+    """Shift the mask head's bias so that each hand's predicted mask covers
+    about half the images (its median maps to 0.5): at random weights the
+    mask is nearly constant, and the clouds would be empty or whole-image.
+    The bilinear resizes after the head keep a constant shift."""
+    import torch
+    with torch.inference_mode():
+        mask = model.encoder.image_phase(img.permute(0, 3, 1, 2), aux=False,
+                                         need_mask=True)[1]
+        med = mask.float().transpose(0, 1).flatten(1).median(dim=1).values
+    with torch.no_grad():
+        model.encoder.dp_decoder.head.bias += 0.5 - med
+
+
+def make_serve_step(cfg, model, consts, gen):
+    """The serving step of the JAX ``cli/infer.py:143-151``: ``infer_rgbd``
+    composed with ``eval_outputs(..., {"K_new": K})``; returns the outputs
+    and ``other``."""
+    import torch
+    import pdfnet_tpu_torch as port
+
+    def step(b):
+        with torch.inference_mode():
+            out = port.infer_rgbd(model, *(b[k] for k in SERVE_INPUTS), gen)
+            return (port.eval_outputs(cfg, consts, *out, {"K_new": b["K_new"]}),
+                    out[3])
+    return step
+
+
+def serve_phase(args, card, cfg, dev):
+    """The serving step at batch 8 in bf16 (the main path, counted), its
+    outputs, a float32 check against the CPU, and frames/s.  Returns the
+    kernels' launches in one bf16 step."""
+    import torch
+    import pdfnet_tpu_torch as port
+    from pdfnet_tpu_torch.ops import grouping, sa, trunk
+
+    scfg = cfg.replace(knn_method="pallas", fused_trunk=True)
+    res, n = cfg.default_resolution, cfg.sample_num
+    model = port.build_model(scfg, device=dev)
+    jitter_bn_(model, seed=3)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in bench_batch(BATCH, res, n).items()}
+    split_masks_(model, batch["input"])
+    consts = port.load_loss_consts(dev)
+    step = make_serve_step(scfg, model, consts,
+                           torch.Generator(device=dev).manual_seed(0))
+
+    # the main path, once, through the user's entry points
+    for m in (sa, grouping, trunk):
+        m.reset_launches()
+    out, other = step(batch)
+    torch.cuda.synchronize()
+    launches = {**sa.launches, **grouping.launches, **trunk.launches}
+    print(f"serve step [bf16, batch {BATCH}] kernel launches: "
+          f"{json.dumps(launches)}")
+    others = [n for n in launches if n not in SERVE_KERNELS]
+    check(launches["knn"] == 2 and launches["fused_bottleneck_s1"] == 8
+          and not any(launches[n] for n in others),
+          f"expected 2 knn and 8 fused_bottleneck_s1 launches and no other "
+          f"kernel: {launches}")
+    shapes = {"verts_pred": (BATCH, 2, 778, 3), "joints_pred": (BATCH, 2, 21, 3),
+              "verts_pred_off": (BATCH, 2, 778, 3),
+              "joints_pred_off": (BATCH, 2, 21, 3),
+              "lms21_pred": (BATCH, 2, 21, 2)}
+    for key, shape in shapes.items():
+        check(tuple(out[key].shape) == shape, f"{key} {tuple(out[key].shape)}")
+        check(bool(torch.isfinite(out[key]).all()), f"{key} not finite")
+    ind = other["ind"]
+    check(tuple(ind.shape) == (BATCH, 2) and bool((ind >= 0).all())
+          and bool((ind < (res // cfg.down_ratio) ** 2).all()),
+          f"decoded centers out of range: {ind.tolist()}")
+    share = (other["mask"] > 0.5).float().mean(dim=(0, 1, 2)).tolist()
+    print(f"serve step [bf16] outputs: shapes ok, finite, centers in range; "
+          f"mask share > 0.5 [left, right] {share[1]:.3f}, {share[0]:.3f}; "
+          f"|verts_pred| max {out['verts_pred'].abs().max().item():.4f}")
+
+    state = model.state_dict()
+    serve_check_phase(scfg, state, batch, dev)
+
+    # throughput, host clock around synchronized loops, TF32 off
+    s32 = scfg.replace(compute_dtype="float32")
+    m32 = port.HandNet(s32).to(dev).eval()
+    m32.load_state_dict(state)
+    step32 = make_serve_step(s32, m32, consts,
+                             torch.Generator(device=dev).manual_seed(0))
+    mdef = port.HandNet(cfg).to(dev).eval()
+    mdef.load_state_dict(state)
+    step_def = make_serve_step(cfg, mdef, consts,
+                               torch.Generator(device=dev).manual_seed(0))
+    big = {k: torch.from_numpy(v).to(dev)
+           for k, v in bench_batch(4 * BATCH, res, n, seed=1).items()}
+    for label, st, b, B in (("bf16", step, batch, BATCH),
+                            ("f32", step32, batch, BATCH),
+                            ("bf16", step, big, 4 * BATCH),
+                            ("f32", step32, big, 4 * BATCH),
+                            ("bf16, default config: pallas_sa, unfused trunk",
+                             step_def, batch, BATCH)):
+        print(f"serve step frames/s [{label}, batch {B}]: "
+              f"{fps(st, b, B):.2f} ({card})")
+    if args.profile:
+        profile(lambda: step(batch), f"serve_bf16_b{BATCH}")
+    del m32, mdef, big
+    return launches
+
+
+def serve_check_phase(scfg, state, batch, dev) -> None:
+    """One float32 serving step on the card against the same step on the
+    CPU at batch 1, with deterministic point sampling.
+
+    A predicted-mask pixel at 0.5, or a depth at a band edge, can fall on
+    either side on the two devices, and a neighbour on a tie or on the ball
+    radius likewise; the CPU step therefore replays the card's clouds and
+    neighbour selections (the kernels' own agreement is checked bit for bit
+    in the kernel phase), and the flips are counted and printed."""
+    import torch
+    import pdfnet_tpu_torch as port
+    import pdfnet_tpu_torch.models.handnet as handnet
+    from pdfnet_tpu_torch.ops import grouping, sa
+
+    c = scfg.replace(compute_dtype="float32", sample_deterministic=True)
+    b1 = {k: batch[k][:1] for k in SERVE_INPUTS}
+    clouds, chosen = [], []
+    flips = dict(mask=0, choose=0, neighbours=0, slots=0)
+    build_clouds, knn = handnet.depth_to_hand_clouds, grouping.knn
+
+    def record_clouds(depth, mask, *a, **k):
+        out = build_clouds(depth, mask, *a, **k)
+        clouds.append((mask.cpu(), *(t.cpu() for t in out)))
+        return out
+
+    def record_knn(*a, **k):
+        out = knn(*a, **k)
+        chosen.append(tuple(t.cpu() for t in out))
+        return out
+
+    def replay_clouds(depth, mask, *a, **k):
+        own = build_clouds(depth, mask, *a, **k)
+        card_mask, *card = clouds.pop(0)
+        flips["mask"] += int(((mask > 0.5) != (card_mask > 0.5)).sum())
+        flips["choose"] += int((own[0] != card[0]).sum())
+        return tuple(card)
+
+    def replay_knn(centers, points, k):
+        own = sa.knn_select_plain(centers, points, k)
+        card_dist, card_idx = chosen.pop(0)
+        flips["neighbours"] += int((own[1] != card_idx.long()).sum())
+        flips["slots"] += own[1].numel()
+        return card_dist, card_idx.long()
+
+    runs = []
+    for i, d in enumerate((dev, torch.device("cpu"))):
+        model = port.HandNet(c).to(d).eval()
+        model.load_state_dict({k: v.to(d) for k, v in state.items()})
+        patches = ([(handnet, "depth_to_hand_clouds", record_clouds),
+                    (grouping, "knn", record_knn)] if i == 0 else
+                   [(handnet, "depth_to_hand_clouds", replay_clouds),
+                    (grouping, "knn", replay_knn)])
+        saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
+        try:
+            for m, n, fn in patches:
+                setattr(m, n, fn)
+            step = make_serve_step(c, model, port.load_loss_consts(d), None)
+            out, _ = step({k: v.to(d) for k, v in b1.items()})
+        finally:
+            for m, n, fn in saved:
+                setattr(m, n, fn)
+        runs.append({k: v.cpu() for k, v in out.items()})
+    check(not clouds and not chosen,
+          "the CPU step built clouds or selected fewer times than the card's")
+    print(f"serve step [f32, batch 1]: the CPU's own masks differ from the "
+          f"card's in {flips['mask']} pixels, its clouds in "
+          f"{flips['choose']} chosen pixels, its neighbour selection in "
+          f"{flips['neighbours']} of {flips['slots']} slots; the CPU step "
+          f"replays the card's")
+    got, want = runs
+    worst = 0.0
+    for key in want:
+        g, w = got[key], want[key]
+        scale = max(1.0, w.abs().max().item())
+        err = (g - w).abs().max().item()
+        worst = max(worst, err / scale)
+        print(f"serve step [f32, batch 1] card vs cpu {key}: max_abs_err "
+              f"{err:.3e} (scale {scale:.3e})")
+        check(torch.allclose(g, w, atol=STEP_TOL * scale, rtol=STEP_TOL),
+              f"f32 serve step on the card differs from the CPU in {key}")
+    print(f"serve step [f32] card agrees with cpu: worst error / scale "
+          f"{worst:.3e} <= {STEP_TOL}")
+
+
 def profile(fn, label: str, steps: int = 5) -> None:
     """Device time by kernel over a few steps of ``fn``: the table goes to
     chiprun_out/profile_{label}.txt, a summary line (device busy share, the
@@ -647,7 +1023,9 @@ def profile(fn, label: str, steps: int = 5) -> None:
                and not getattr(e, "is_user_annotation", False)]
     device = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     own_ms = sum(e.self_device_time_total for e in kernels
-                 if "sa_group_kernel" in e.key or "sa_mlp_max_kernel" in e.key
+                 if any(n in e.key for n in ("sa_group_kernel",
+                                             "sa_mlp_max_kernel",
+                                             "bottleneck_kernel"))
                  ) / 1e3 / steps
     print(f"profile [{label}]: wall {wall:.3f} ms/step, device "
           f"{device:.3f} ms/step (busy {device / wall:.3f}), the port's "
@@ -673,8 +1051,8 @@ def profile(fn, label: str, steps: int = 5) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile bf16 eval steps at batch 8 and 32 "
-                         "and bf16 train steps at batch 8")
+                    help="also profile bf16 eval steps at batch 8 and 32, "
+                         "bf16 train steps and bf16 serving steps at batch 8")
     args = ap.parse_args()
     try:
         import torch
@@ -712,6 +1090,8 @@ def main() -> int:
     launches.update({n: v for n, v in train_phase(args, card, cfg, dev).items()
                      if n in TRAIN_KERNELS})
     train_check_phase(cfg, dev)
+    launches.update({n: v for n, v in serve_phase(args, card, cfg, dev).items()
+                     if n in SERVE_KERNELS or n == "fused_bottleneck_s2"})
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

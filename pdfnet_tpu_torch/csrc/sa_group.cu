@@ -5,6 +5,7 @@
 //   _knn_gather_block_kernel  pdfnet_tpu/ops/pallas_knn.py:172  (eval, level 1)
 //   _knn_gather_feat_kernel   pdfnet_tpu/ops/pallas_knn.py:107  (level 2)
 //   _knn_gather_kernel        pdfnet_tpu/ops/pallas_knn.py:82   (train, level 1)
+//   _knn_kernel               pdfnet_tpu/ops/pallas_knn.py:70   (knn_pallas)
 // All compute one function on rows of width C (C == 3 at level 1):
 //   for each of the first S rows (the centers) of a hand's (N, C) feature
 //   block, select the k rows with the smallest exact float32
@@ -14,7 +15,9 @@
 //   substitute is all zeros, as the TPU kernel writes.  The train path's
 //   entry points also write each neighbour's index and d2, and its level-1
 //   entry point skips the substitution (the caller applies it, as
-//   knn_gather_xyz_pallas leaves it to _fused_group_pallas).
+//   knn_gather_xyz_pallas leaves it to _fused_group_pallas).  The knn entry
+//   point (knn_pallas's contract) takes its centers as a separate (H, S, 3)
+//   operand and writes only each neighbour's index and d2.
 //
 // Design: one warp per center, eight centers per block.  The hand's xyz is
 // staged in shared memory (12 KB at N = 1024); each lane keeps N/32
@@ -61,11 +64,14 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 
 // kSel: also write idx (int32) and d2 (float32) per neighbour.
 // kBall: substitute out-of-ball neighbours (else always row - center).
-template <typename T, bool kSel, bool kBall>
+// kRows: write the grouped rows (else only idx and d2).
+// centers: (H, S, 3) float32, or nullptr for the first S rows of feat.
+template <typename T, bool kSel, bool kBall, bool kRows = true>
 __global__ void __launch_bounds__(kWarps * 32)
 sa_group_kernel(const T* __restrict__ feat, T* __restrict__ out,
                 int32_t* __restrict__ idx_out, float* __restrict__ dist_out,
-                int N, int C, int S, int K, float r2) {
+                const float* __restrict__ centers, int N, int C, int S, int K,
+                float r2) {
   extern __shared__ float sxyz[];  // (N, 3) float32
   const int h = blockIdx.y;
   const T* fh = feat + static_cast<int64_t>(h) * N * C;
@@ -80,9 +86,12 @@ sa_group_kernel(const T* __restrict__ feat, T* __restrict__ out,
   const int lane = threadIdx.x & 31;
   const int s = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (s >= S) return;
-  const float cx = sxyz[3 * s + 0];
-  const float cy = sxyz[3 * s + 1];
-  const float cz = sxyz[3 * s + 2];
+  const float* ctr = centers != nullptr
+                         ? centers + (static_cast<int64_t>(h) * S + s) * 3
+                         : sxyz + 3 * s;
+  const float cx = ctr[0];
+  const float cy = ctr[1];
+  const float cz = ctr[2];
 
   unsigned key[kPerLane];
 #pragma unroll
@@ -102,7 +111,7 @@ sa_group_kernel(const T* __restrict__ feat, T* __restrict__ out,
 
   const T* crow = fh + static_cast<int64_t>(s) * C;
   const int64_t row0 = (static_cast<int64_t>(h) * S + s) * K;
-  T* orow = out + row0 * C;
+  T* orow = kRows ? out + row0 * C : nullptr;
   for (int r = 0; r < K; ++r) {
     // lane-local argmin; ascending j keeps the lowest index on ties
     unsigned best = kTaken;
@@ -133,6 +142,7 @@ sa_group_kernel(const T* __restrict__ feat, T* __restrict__ out,
       idx_out[row0 + r] = bi;
       dist_out[row0 + r] = d;
     }
+    if (!kRows) continue;
     T* o = orow + static_cast<int64_t>(r) * C;
     if (!kBall || d <= r2) {
       const T* src = fh + static_cast<int64_t>(bi) * C;
@@ -152,19 +162,22 @@ sa_group_kernel(const T* __restrict__ feat, T* __restrict__ out,
   }
 }
 
-template <typename T, bool kSel, bool kBall>
+template <typename T, bool kSel, bool kBall, bool kRows = true>
 int launch(const void* feat, void* out, void* idx, void* dist, int H, int N,
-           int C, int S, int K, float r2, void* stream) {
-  if (H < 1 || N < 1 || N > kMaxPoints || C < 3 || S < 1 || S > N || K < 1 ||
-      K > N) {
+           int C, int S, int K, float r2, void* stream,
+           const void* centers = nullptr) {
+  // without separate centers, the centers are the first S rows
+  if (H < 1 || N < 1 || N > kMaxPoints || C < 3 || S < 1 ||
+      (centers == nullptr && S > N) || K < 1 || K > N) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   dim3 grid((S + kWarps - 1) / kWarps, H);
   const size_t smem = static_cast<size_t>(N) * 3 * sizeof(float);
-  sa_group_kernel<T, kSel, kBall><<<grid, kWarps * 32, smem,
-                                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(feat), static_cast<T*>(out),
-      static_cast<int32_t*>(idx), static_cast<float*>(dist), N, C, S, K, r2);
+  sa_group_kernel<T, kSel, kBall, kRows>
+      <<<grid, kWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(feat), static_cast<T*>(out),
+          static_cast<int32_t*>(idx), static_cast<float*>(dist),
+          static_cast<const float*>(centers), N, C, S, K, r2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -205,4 +218,13 @@ extern "C" int group_feat(const void* feat, void* out, void* idx, void* dist,
                                                   C, S, K, r2, stream)
               : launch<float, true, true>(feat, out, idx, dist, H, N, C, S, K,
                                           r2, stream);
+}
+
+// knn_pallas: centers (H, S, 3) and points (H, N, 3) float32 -> dist (H, S, K)
+// float32 ascending, idx (H, S, K) int32.
+extern "C" int knn(const void* centers, const void* points, void* dist,
+                   void* idx, int H, int N, int S, int K, void* stream) {
+  if (centers == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<float, true, false, false>(points, nullptr, idx, dist, H, N, 3,
+                                           S, K, 0.0f, stream, centers);
 }

@@ -1,11 +1,15 @@
 """Image encoder: ResNet-50 FPN + CenterNet heads + hms/mask decoders +
 center-feature conditioning + PointNet++ fusion (port of
-``pdfnet_tpu/models/encoder.py``, ``mode="full"``; reference ResNetSimple,
+``pdfnet_tpu/models/encoder.py``; reference ResNetSimple,
 intaghand_encoder.py:567-819, and resnet_mid, :822-882).
 
-NCHW inside.  ``aux=False`` skips what the eval outputs never read (the
-hms/mask decoders and every head but ``hm``): the JAX eval step drops the
-same work by dead-code elimination under ``jit``.
+NCHW inside.  ``forward`` is the JAX ``mode="full"``; ``image_phase`` and
+``point_phase`` are its ``mode="image"`` / ``mode="point"`` split
+(``encoder.py:58-77,167-174``), between which the self-contained RGB-D path
+builds the clouds from the predicted mask.  ``aux=False`` skips what the
+eval outputs never read (the hms/mask decoders and every head but ``hm``):
+the JAX eval step drops the same work by dead-code elimination under
+``jit``.  ``need_mask`` keeps the mask decoder for the cloud builder.
 """
 
 from __future__ import annotations
@@ -35,12 +39,13 @@ class FPNEncoder(nn.Module):
                  ball_radius: float = 0.015, ball_radius2: float = 0.04,
                  input_feature_num: int = 3,
                  raw_center_decode: bool = False,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 knn_method: str = "pallas_sa", fused_trunk: bool = False):
         super().__init__()
         gd = global_feature_dim
         self.raw_center_decode = raw_center_decode
         self.e_conv1 = conv(3, 3, 3)
-        self.resnet = ResNet()
+        self.resnet = ResNet(fused_eval=fused_trunk)
         self.p2 = conv(256, gd, 3, bias=True)
         # flax ConvTranspose 4x4/s2 padding="SAME" == torch padding 1 with
         # the kernel flipped (convert.from_flax flips it)
@@ -65,7 +70,8 @@ class FPNEncoder(nn.Module):
             knn_k=knn_k, num_level1=num_level1, num_level2=num_level2,
             ball_radius=ball_radius, ball_radius2=ball_radius2,
             input_feature_num=input_feature_num, resolution=resolution,
-            emb_dims=(3, 64, gd), compute_dtype=compute_dtype)
+            emb_dims=(3, 64, gd), compute_dtype=compute_dtype,
+            knn_method=knn_method)
         self.sft = SFTLayer(1024, 1024)
 
     def forward(self, img: torch.Tensor, cloud: torch.Tensor,
@@ -79,6 +85,22 @@ class FPNEncoder(nn.Module):
         Returns (hms, mask, ret, ind, img_fmaps, hms_fmaps, dp_fmaps) like the
         JAX module; with ``aux=False`` hms, mask and both fmaps lists are
         None and ``ret`` holds only the heatmap heads.
+        """
+        hms, mask, ret, ind, cached = self.image_phase(img, ind, aux)
+        fuse = self.point_phase(cached, cloud, choose, ind)
+        return (hms, mask, ret, ind, [fuse, cached["x2"], cached["x3"],
+                                      cached["x4"]],
+                cached["hms_fmaps"], cached["dp_fmaps"])
+
+    def image_phase(self, img: torch.Tensor, ind: Optional[torch.Tensor] = None,
+                    aux: bool = True, need_mask: bool = False):
+        """Trunk, FPN, heads, center decode and decoders (``mode="image"``).
+
+        Returns (hms, mask, ret, ind, cached); ``cached`` holds x0, the
+        pyramid embeddings ``pw_emb``, the trunk stages x2..x4 and the
+        decoder pyramids (None where skipped).  ``aux=False`` skips the
+        decoders and the non-hm heads, ``need_mask`` then still runs the mask
+        decoder (hms and its pyramid stay None).
         """
         pw_l0 = F.relu(self.e_conv1(img))
         stem, x4, x3, x2, x1 = self.resnet(img)
@@ -99,13 +121,18 @@ class FPNEncoder(nn.Module):
         hms = mask = hms_fmaps = dp_fmaps = None
         if aux:
             hms, hms_fmaps = self.hms_decoder(x1)
+        if aux or need_mask:
             mask, dp_fmaps = self.dp_decoder(x1)
+        cached = dict(x0=x0, pw_emb=[pw_l0, stem, x0], x2=x2, x3=x3, x4=x4,
+                      hms_fmaps=hms_fmaps, dp_fmaps=dp_fmaps)
+        return hms, mask, ret, ind, cached
 
-        fuse = self._point_phase(x0, [pw_l0, stem, x0], cloud, choose, ind)
-        return hms, mask, ret, ind, [fuse, x2, x3, x4], hms_fmaps, dp_fmaps
-
-    def _point_phase(self, x0, pw_emb, cloud, choose, ind):
-        """Center features at the two hand centers + PointNet++ fusion."""
+    def point_phase(self, cached, cloud: torch.Tensor, choose: torch.Tensor,
+                    ind: torch.Tensor) -> torch.Tensor:
+        """Center features at the two hand centers + PointNet++ fusion from
+        ``image_phase``'s cache (``mode="point"``): the fused (B, 2, 1024)
+        point feature."""
+        x0 = cached["x0"]
         B, gd, H0, W0 = x0.shape
         # 5x5 input patches around each center stand in for the full-map
         # 3x3 convs (VALID on the zero-padded map, the same sums)
@@ -123,7 +150,7 @@ class FPNEncoder(nn.Module):
         up0 = up0 * inmap[:, None].to(up0.dtype)
         center_feat = self.center_up1(up0).reshape(B, 2, 1024)
 
-        fuse = self.pointnet(cloud, pw_emb, choose)           # (B, 2, 1024)
+        fuse = self.pointnet(cloud, cached["pw_emb"], choose)  # (B, 2, 1024)
         return self.sft(fuse, center_feat)
 
 

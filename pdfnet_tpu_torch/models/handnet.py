@@ -1,12 +1,19 @@
 """Top-level model: encoder -> mid fusion -> dual-hand GCN mesh decoder
-(port of ``pdfnet_tpu/models/handnet.py:28-114`` with host-built clouds;
-reference HandNET_GCN, intaghand_model.py:14-47).
+(port of ``pdfnet_tpu/models/handnet.py``; reference HandNET_GCN,
+intaghand_model.py:14-47).
 
 The module's mode is the JAX ``train`` flag: in training mode BatchNorm
 uses batch statistics (unless ``Config.freeze_bn_stats``), dropout is live,
 the set abstraction takes its differentiable grouping path and every head
-and decoder runs.  The self-contained serving path (``choose=None``: clouds
-built from the predicted mask) is a later slice of the port.
+and decoder runs.  With host-built clouds (``choose`` and ``cloud`` given)
+the encoder runs whole; without them it is the self-contained RGB-D path of
+``infer_rgbd``: one trunk pass, the clouds built on the device from the
+predicted mask and the depth between the encoder's image and point phases
+(JAX ``handnet.py:60-82``).
+
+The port honours or refuses every ``Config`` value the model reads:
+``HandNet`` raises ``NotImplementedError`` for a value whose JAX path the
+port lacks (see ``check_config``).
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ from pdfnet_tpu_torch.models.encoder import FPNEncoder, MidFusion
 from pdfnet_tpu_torch.models.gcn_decoder import MeshDecoder
 from pdfnet_tpu_torch.models.layers import (BatchNorm, CenterHead, Dropout,
                                             L2Norm, StridedUpConv)
+from pdfnet_tpu_torch.ops.grouping import FUSED_METHODS, GENERIC_METHODS
+from pdfnet_tpu_torch.ops.pointcloud import depth_to_hand_clouds
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -30,12 +39,37 @@ def compute_dtype(cfg: Config) -> torch.dtype:
     return _DTYPES[cfg.compute_dtype]
 
 
+def check_config(cfg: Config) -> None:
+    """Raise NotImplementedError naming each Config value the model would
+    read but whose JAX path the port does not have."""
+    refused = []
+    if cfg.knn_method not in FUSED_METHODS + GENERIC_METHODS:
+        refused.append(f"knn_method={cfg.knn_method!r} (lax.approx_max_k has "
+                       f"no counterpart)")
+    if cfg.sample_strategy != "random":
+        refused.append(f"sample_strategy={cfg.sample_strategy!r} (the "
+                       f"self-contained path's FPS ordering)")
+    if cfg.input_feature_num != 3:
+        refused.append(f"input_feature_num={cfg.input_feature_num} (xyz "
+                       f"clouds only: no normals)")
+    if cfg.use_img_attn:
+        refused.append("use_img_attn=True (the decoder's image attention)")
+    if cfg.s2d_stem:
+        refused.append("s2d_stem=True (the space-to-depth stem)")
+    if cfg.patch_heads:
+        refused.append("patch_heads=True (heads at the hand centers only)")
+    if refused:
+        raise NotImplementedError("the port does not implement "
+                                  + "; ".join(refused))
+
+
 class HandNet(nn.Module):
     def __init__(self, cfg: Config):
         super().__init__()
         if cfg.arch != "resnet50":
             raise ValueError(f"arch={cfg.arch!r}: the port has HandNet "
                              "(resnet50) only so far")
+        check_config(cfg)
         self.cfg = cfg
         gd, fd = cfg.global_feature_dim, cfg.fmap_dim
         self.encoder = FPNEncoder(
@@ -47,7 +81,8 @@ class HandNet(nn.Module):
             ball_radius2=cfg.ball_radius2,
             input_feature_num=cfg.input_feature_num,
             raw_center_decode=cfg.replicate_reference_quirks,
-            compute_dtype=compute_dtype(cfg))
+            compute_dtype=compute_dtype(cfg), knn_method=cfg.knn_method,
+            fused_trunk=cfg.fused_trunk)
         # decoder-pyramid widths + trunk stages layer3, layer2, layer1
         self.mid = MidFusion((2 * fd, 2 * fd + 1024, 2 * fd + 512, 2 * fd + 256),
                              tuple(cfg.deconv_dims))
@@ -61,28 +96,55 @@ class HandNet(nn.Module):
                 m.frozen = cfg.freeze_bn_stats
         self._dropouts = [m for m in self.modules() if isinstance(m, Dropout)]
 
-    def forward(self, img: torch.Tensor, choose: torch.Tensor,
-                cloud: torch.Tensor, ind: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+    def forward(self, img: torch.Tensor, choose: Optional[torch.Tensor] = None,
+                cloud: Optional[torch.Tensor] = None,
+                ind: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                depth: Optional[torch.Tensor] = None,
+                K: Optional[torch.Tensor] = None,
+                valid: Optional[torch.Tensor] = None,
+                point_generator: Optional[torch.Generator] = None):
         """img (B, H, W, 3) normalized RGB (NHWC, as the JAX model takes it),
         choose (B, 2, N) flat pixel indices, cloud (B, 2, N, 3), ind (B, 2)
         the hand centers' flat indices on the /4 grid (the ground truth at
         train time) or None to decode them from the predicted heatmap;
         ``generator`` feeds dropout at train time.
 
+        Without ``choose`` or ``cloud`` the clouds are built from the
+        predicted mask: depth (B, H, W) metric, K (B, 3, 3), valid (B, 2);
+        ``point_generator`` (on the model's device) feeds the random point
+        sampler (``Config.sample_deterministic`` takes the first in-band
+        pixels instead).
+
         Returns (result, params, hand_dicts, other) as the JAX model does.
         In training mode ``other`` holds ``hms``, ``mask`` and every head of
         ``ret`` in float32 (NHWC); at eval it leaves out what the eval
-        outputs never read: no hms/mask, and only the heatmap head.
+        outputs never read: no hms, the mask only on the self-contained
+        path, and only the heatmap head.
         """
         cfg = self.cfg
         for m in self._dropouts:
             m.generator = generator
         with torch.autocast(img.device.type, dtype=torch.bfloat16,
                             enabled=cfg.compute_dtype == "bfloat16"):
-            hms, mask, ret, ind, img_fmaps, hms_fmaps, dp_fmaps = self.encoder(
-                img.permute(0, 3, 1, 2), cloud.float(), choose, ind,
-                aux=self.training)
+            if choose is None or cloud is None:
+                hms, mask, ret, ind, cached = self.encoder.image_phase(
+                    img.permute(0, 3, 1, 2), ind, aux=self.training,
+                    need_mask=True)
+                # mask channels are [right, left]; the cloud builder wants
+                # [left, right], as cloud[:, 0] is the left hand
+                mask_lr = mask.detach().flip(1).permute(0, 2, 3, 1)
+                choose, cloud, _ok = depth_to_hand_clouds(
+                    depth, mask_lr, K, valid, point_generator,
+                    cfg.sample_num, deterministic=cfg.sample_deterministic)
+                fuse = self.encoder.point_phase(cached, cloud, choose, ind)
+                img_fmaps = [fuse, cached["x2"], cached["x3"], cached["x4"]]
+                hms_fmaps, dp_fmaps = cached["hms_fmaps"], cached["dp_fmaps"]
+            else:
+                (hms, mask, ret, ind, img_fmaps, hms_fmaps,
+                 dp_fmaps) = self.encoder(img.permute(0, 3, 1, 2),
+                                          cloud.float(), choose, ind,
+                                          aux=self.training)
             # the fmaps feed only ImgAttn, which is off (use_img_attn=False);
             # at train time their BatchNorms still update, as in flax
             gf_left, gf_right, _fmaps = self.mid(img_fmaps, hms_fmaps,
@@ -94,7 +156,9 @@ class HandNet(nn.Module):
         other["ret"] = {k: nhwc(v) for k, v in ret.items()}
         other["ind"] = ind
         if hms is not None:
-            other["hms"], other["mask"] = nhwc(hms), nhwc(mask)
+            other["hms"] = nhwc(hms)
+        if mask is not None:
+            other["mask"] = nhwc(mask)
         return result, params, hand_dicts, other
 
 
@@ -148,3 +212,25 @@ def build_model(cfg: Config, device="cuda") -> HandNet:
     model = HandNet(cfg)
     init_weights(model, cfg.seed)
     return model.to(device).eval()
+
+
+def infer_rgbd(model: HandNet, img, depth, K, valid,
+               generator: Optional[torch.Generator] = None):
+    """Self-contained RGB-D inference (JAX ``infer_rgbd``,
+    ``handnet.py:126-140``): centers, masks and point clouds all come from
+    the network's own predictions, in one trunk pass.  img (B, H, W, 3)
+    normalized RGB, depth (B, H, W) metric, K (B, 3, 3), valid (B, 2);
+    numpy arrays or tensors, moved to the model's device.  ``generator`` (on
+    that device) feeds the random point sampler.  Runs in eval mode under
+    ``torch.inference_mode()``; returns (result, params, hand_dicts, other),
+    which ``eval_outputs(cfg, consts, *out, {"K_new": K})`` turns into the
+    serving outputs.  Returns before the device finishes, like any CUDA
+    call."""
+    device = next(model.parameters()).device
+    if model.training:
+        model.eval()
+    with torch.inference_mode():
+        img, depth, K, valid = (torch.as_tensor(t, device=device)
+                                for t in (img, depth, K, valid))
+        return model(img, depth=depth, K=K, valid=valid,
+                     point_generator=generator)

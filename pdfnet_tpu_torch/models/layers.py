@@ -36,7 +36,8 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
     """BatchNorm over dim 1 of (N, C, ...) with flax's rules (``nn.BatchNorm``
     with ``momentum=0.9``, ``epsilon=1e-5``, float32 statistics).
 
-    - eval: the running statistics (``F.batch_norm``);
+    - eval: the running statistics (``F.batch_norm``), in float32 unless
+      ``keep_dtype``;
     - train: the batch's float32 mean and its biased variance
       ``max(E[x^2] - E[x]^2, 0)`` (flax's fast variance), normalized as
       ``(x - mean) * (rsqrt(var + eps) * weight) + bias``; the running
@@ -45,9 +46,8 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
     - ``frozen`` (``Config.freeze_bn_stats``): train-time normalization with
       the running statistics, which stay as they are; weight and bias train.
 
-    At train time the output is float32, or the input's dtype with
-    ``keep_dtype`` (the ResNet's norms, whose flax dtype is the compute
-    dtype).
+    The output is float32, or the input's dtype with ``keep_dtype`` (the
+    ResNet's norms, whose flax dtype is the compute dtype).
     """
 
     def __init__(self, c: int, keep_dtype: bool = False):
@@ -57,7 +57,8 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var,
+            return F.batch_norm(x if self.keep_dtype else x.float(),
+                                self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
         xf = x.float()
         if self.frozen:

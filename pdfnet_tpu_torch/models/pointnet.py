@@ -2,14 +2,21 @@
 (port of ``pdfnet_tpu/models/pointnet.py``; reference PointNet_Plus,
 intaghand_encoder.py:32-159).
 
-At eval, levels 1 and 2 run through ``ops.sa`` (the CUDA kernels on the
-card, their plain versions on the CPU) with the BN-folded MLPs, which is the
-JAX package's ``knn_method="pallas_sa"`` eval path.  At train time (the
-module in training mode) they group through ``ops.grouping`` (kernels with
-custom backward passes) and run the unfolded ``PointMLP`` with live
-BatchNorm and a max over the k neighbours, as the JAX module does with
-``train=True`` (``pointnet.py:146-171``).  Level 3 is an ordinary Linear +
-BatchNorm + ReLU stack and a max over points.
+Levels 1 and 2 dispatch on ``knn_method`` as the JAX module does
+(``pointnet.py:123-171``):
+
+- ``"pallas_sa"`` at eval: ``ops.sa`` (grouping + BN-folded MLP + max-pool
+  kernels on the card, their plain versions on the CPU);
+- otherwise ``ops.grouping`` groups (``"pallas_fused"``/``"pallas_sa"``:
+  the fused K3/K4 kernels with custom backward passes; ``"topk"`` /
+  ``"pallas"``: the generic kNN + ball query + gather) and the unfolded
+  ``PointMLP`` runs (live BatchNorm at train time) with a max over the k
+  neighbours.
+
+The generic branch selects on float32 xyz at both levels: the SFT promotes
+the float32 points, and the level-2 rows concatenate float32 centers with
+the MLP's float32 output (its BatchNorm is float32, as flax's).  Level 3 is
+an ordinary Linear + BatchNorm + ReLU stack and a max over points.
 """
 
 from __future__ import annotations
@@ -78,11 +85,14 @@ class PointNetPlus(nn.Module):
                  num_level2: int = 128, ball_radius: float = 0.015,
                  ball_radius2: float = 0.04, input_feature_num: int = 3,
                  resolution: int = 384, emb_dims: Sequence[int] = (3, 64, 256),
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 knn_method: str = "pallas_sa"):
         super().__init__()
         if input_feature_num != 3:
-            raise ValueError("the eval set abstraction takes xyz clouds only "
-                             "(input_feature_num=3)")
+            raise NotImplementedError(
+                "input_feature_num=6: the port's set abstraction takes xyz "
+                "clouds only (input_feature_num=3)")
+        self.knn_method = knn_method
         self.knn_k = knn_k
         self.num_level1 = num_level1
         self.num_level2 = num_level2
@@ -122,23 +132,25 @@ class PointNetPlus(nn.Module):
             nhwc[2], c_quart[:, :, :self.num_level2].reshape(B, -1))
             .reshape(B, H, self.num_level2, -1))
 
-        S1, S2, k = self.num_level1, self.num_level2, self.knn_k
-        if self.training:
-            grouped, _ = group_points(pts, k, S1, self.ball_radius)
-            x = self.mlp1(grouped).amax(dim=2)
-        else:
+        S1, S2, k, method = (self.num_level1, self.num_level2, self.knn_k,
+                             self.knn_method)
+        use_sa = method == "pallas_sa" and not self.training
+        if use_sa:
             x = sa_level1(pts.float(), _fold_point_mlp(self.mlp1), k, S1,
                           self.ball_radius, self.compute_dtype)
+        else:
+            grouped, _ = group_points(pts, k, S1, self.ball_radius, method)
+            x = self.mlp1(grouped).amax(dim=2)
         x = torch.cat([pts[:, :S1, :3], x], dim=-1)
         x = self.sft1(x, pw_l1)
 
-        if self.training:
-            grouped, _ = group_points_level2(x, S2, k, self.ball_radius2,
-                                             self.compute_dtype)
-            x2 = self.mlp2(grouped).amax(dim=2)
-        else:
+        if use_sa:
             x2 = sa_level2(x.float(), _fold_point_mlp(self.mlp2), k, S2,
                            self.ball_radius2, self.compute_dtype)
+        else:
+            grouped, _ = group_points_level2(x, S2, k, self.ball_radius2,
+                                             self.compute_dtype, method)
+            x2 = self.mlp2(grouped).amax(dim=2)
         x = torch.cat([x[:, :S2, :3], x2], dim=-1)
         x = self.sft2(x, pw_l2)
 

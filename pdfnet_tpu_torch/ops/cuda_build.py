@@ -21,7 +21,7 @@ from typing import Dict, Iterable, Tuple
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("sa_group.cu", "sa_mlp.cu")
+SOURCES = ("sa_group.cu", "sa_mlp.cu", "trunk_block.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 600

@@ -1,7 +1,15 @@
-"""Set-abstraction grouping on the train path, with gradients (port of the
-fused branches of ``pdfnet_tpu/ops/grouping.py``: ``group_points`` ->
-``_fused_group_pallas`` and ``group_points_level2`` ->
-``_fused_group_feat_pallas``).
+"""Set-abstraction grouping with gradients (port of
+``pdfnet_tpu/ops/grouping.py``).  ``knn_method`` picks the branch as there:
+
+- ``"pallas_fused"`` / ``"pallas_sa"``: the fused branches, ``group_points``
+  -> ``_fused_group_pallas`` and ``group_points_level2`` ->
+  ``_fused_group_feat_pallas`` (the two kernels below);
+- ``"topk"`` / ``"pallas"``: the generic branch, ``knn_ball_query`` (the
+  selection under ``no_grad``, as JAX's ``stop_gradient``), an exact row
+  gather and xyz minus center, differentiated by autograd through the
+  gather.  ``"pallas"`` selects with the ``ops.sa.knn`` kernel (K5),
+  ``"topk"`` with a plain sort of the matmul-expanded distances;
+- ``"approx"`` (``lax.approx_max_k``) has no counterpart and raises.
 
 Two CUDA kernels replace the TPU kernels those branches call:
 
@@ -35,7 +43,10 @@ import torch
 from pdfnet_tpu_torch.ops import cuda_build
 from pdfnet_tpu_torch.ops.sa import (_GROUP_SIGS, _check, _check_cuda,
                                      _check_group_shapes, _f32, _stream,
-                                     group_select_plain, knn_plain)
+                                     group_select_plain, knn, knn_plain)
+
+FUSED_METHODS = ("pallas_fused", "pallas_sa")
+GENERIC_METHODS = ("topk", "pallas")
 
 launches: Dict[str, int] = {"knn_group_xyz": 0, "group_feat": 0}
 
@@ -167,20 +178,89 @@ class _GroupFeat(torch.autograd.Function):
         return d, None, None, None, None
 
 
+# ---- the generic branch ----------------------------------------------------
+
+def _pairwise_sqdist(centers: torch.Tensor, points: torch.Tensor
+                     ) -> torch.Tensor:
+    """(H, S, 3), (H, N, 3) -> (H, S, N) by the expansion |c|^2 + |p|^2 -
+    2 c.p in float32, as ``grouping.py:34-46`` computes it."""
+    cross = torch.einsum("bsc,bnc->bsn", centers, points)
+    c2 = torch.sum(centers * centers, dim=-1)[:, :, None]
+    p2 = torch.sum(points * points, dim=-1)[:, None, :]
+    return c2 + p2 - 2.0 * cross
+
+
+def knn_ball_query(centers: torch.Tensor, points: torch.Tensor, k: int,
+                   radius2: float, method: str = "topk"):
+    """Indices of the k nearest points per center, ball-query substituted
+    (``grouping.py:49-99``): centers (H, S, 3), points (H, N, 3) -> (idx
+    (H, S, k) int64, out-of-ball neighbours replaced by the center's own
+    index; valid (H, S, k) bool, False where substituted).  The xyz must be
+    float32, as they are at both levels of the model (a lower precision is
+    refused, not rounded into the distances); ``radius2`` is compared in
+    float32.  Not differentiable (integer output)."""
+    if method in FUSED_METHODS:
+        method = "pallas"            # the same selection; fusion is upstream
+    if method not in GENERIC_METHODS:
+        raise NotImplementedError(
+            f"knn_method={method!r}: approx_max_k has no counterpart in the "
+            f"port; use 'topk' or 'pallas'")
+    if centers.dtype != torch.float32 or points.dtype != torch.float32:
+        raise TypeError(f"knn_ball_query: xyz must be float32, got "
+                        f"{centers.dtype} centers, {points.dtype} points")
+    with torch.no_grad(), torch.autocast(points.device.type, enabled=False):
+        if method == "pallas":
+            dist, idx = knn(centers.contiguous(), points.contiguous(), k)
+        else:
+            d2 = _pairwise_sqdist(centers, points)
+            dist, idx = torch.sort(d2, dim=-1, stable=True)
+            dist, idx = dist[..., :k], idx[..., :k]
+        valid = dist <= _f32(radius2)
+        center_idx = torch.arange(centers.shape[1], device=idx.device)
+        idx = torch.where(valid, idx.long(), center_idx[None, :, None])
+    return idx, valid
+
+
+def gather_neighbors(feat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Exact row gather (H, N, C), (H, S, k) -> (H, S, k, C), differentiable
+    in feat (``_gather_neighbors``: ``take`` and ``onehot`` are both exact)."""
+    return feat[torch.arange(feat.shape[0], device=feat.device)[:, None, None],
+                idx]
+
+
+def _group_generic(feat: torch.Tensor, num_centers: int, k: int,
+                   radius2: float, method: str) -> torch.Tensor:
+    centers = feat[:, :num_centers, :3]
+    idx, _ = knn_ball_query(centers, feat[..., :3], k, radius2, method)
+    g = gather_neighbors(feat, idx)
+    return torch.cat([g[..., :3] - centers[:, :, None, :], g[..., 3:]], dim=-1)
+
+
+# ---- the two levels --------------------------------------------------------
+
 def group_points(points: torch.Tensor, k: int, num_centers: int,
-                 radius2: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                 radius2: float, knn_method: str = "pallas_fused"
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Level-1 grouping of xyz clouds: points (H, N, 3) -> (grouped
     (H, S, k, 3) center-relative, zero out of the ball; centers (H, S, 3))."""
-    return (_GroupPoints.apply(points, k, num_centers, radius2),
-            points[:, :num_centers, :3])
+    if knn_method in FUSED_METHODS:
+        grouped = _GroupPoints.apply(points, k, num_centers, radius2)
+    else:
+        grouped = _group_generic(points, num_centers, k, radius2, knn_method)
+    return grouped, points[:, :num_centers, :3]
 
 
 def group_points_level2(feat: torch.Tensor, num_centers: int, k: int,
-                        radius2: float, dtype: torch.dtype
+                        radius2: float, dtype: torch.dtype,
+                        knn_method: str = "pallas_fused"
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Level-2 grouping: feat (H, N, C), xyz leading, grouped with its rows
-    in ``dtype`` (the compute dtype: bf16 rows, and so bf16-rounded
-    distances, as ``_fused_group_feat_fwd`` casts on the TPU) -> (grouped
-    (H, S, k, C) of feat's dtype, centers (H, S, 3))."""
-    return (_GroupFeat.apply(feat, k, num_centers, radius2, dtype),
-            feat[:, :num_centers, :3])
+    """Level-2 grouping: feat (H, N, C), xyz leading -> (grouped (H, S, k, C)
+    of feat's dtype, centers (H, S, 3)).  The fused branch groups its rows in
+    ``dtype`` (the compute dtype: bf16 rows, and so bf16-rounded distances,
+    as ``_fused_group_feat_fwd`` casts on the TPU); the generic one selects
+    and gathers feat as it is."""
+    if knn_method in FUSED_METHODS:
+        grouped = _GroupFeat.apply(feat, k, num_centers, radius2, dtype)
+    else:
+        grouped = _group_generic(feat, num_centers, k, radius2, knn_method)
+    return grouped, feat[:, :num_centers, :3]

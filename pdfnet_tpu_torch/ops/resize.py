@@ -29,12 +29,23 @@ def _interp_matrix(n_in: int, n_out: int) -> np.ndarray:
     return W
 
 
+@functools.lru_cache(maxsize=64)
+def _interp_tensor(n_in: int, n_out: int, device: torch.device,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """``_interp_matrix`` on the device, made once: copying a host array to
+    the card on every call waits for the stream, which would hold a serving
+    step's host behind its device work.  Made outside inference mode, so
+    training may save it for the backward pass."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_interp_matrix(n_in, n_out)).to(device, dtype)
+
+
 def resize_bilinear_align_corners(x: torch.Tensor, out_h: int,
                                   out_w: int) -> torch.Tensor:
     """Resize (B, H, W, C) -> (B, out_h, out_w, C)."""
     B, H, W, C = x.shape
-    Wh = torch.from_numpy(_interp_matrix(H, out_h)).to(x.device, x.dtype)
-    Ww = torch.from_numpy(_interp_matrix(W, out_w)).to(x.device, x.dtype)
+    Wh = _interp_tensor(H, out_h, x.device, x.dtype)
+    Ww = _interp_tensor(W, out_w, x.device, x.dtype)
     y = torch.einsum("oh,bhwc->bowc", Wh, x)
     return torch.einsum("ow,bhwc->bhoc", Ww, y)
 

@@ -1,5 +1,6 @@
 """Set abstraction on the eval path: exact kNN grouping + BN-folded point MLP
-+ max-pool, one call per PointNet++ level.
++ max-pool, one call per PointNet++ level; and the exact kNN selection alone
+(``knn``, the generic grouping's ``knn_method="pallas"``).
 
 Port of ``sa_level1_pallas`` / ``sa_level2_pallas``
 (``pdfnet_tpu/ops/pallas_knn.py:231`` and ``:290``), each of which chains a
@@ -12,6 +13,7 @@ wrapper           replaces (pdfnet_tpu/ops/pallas_knn.py)          source
 sa_group_l1       ``_knn_gather_block_kernel`` :172                 csrc/sa_group.cu
 sa_group_l2       ``_knn_gather_feat_kernel`` :107 (via :346)       csrc/sa_group.cu
 sa_mlp_max        ``_mlpmax_feat_kernel`` :201 (``_mlp_folded``)    csrc/sa_mlp.cu
+knn               ``_knn_kernel`` :70 (``knn_pallas`` :417)         csrc/sa_group.cu
 ================  ==============================================  =====================
 
 Each wrapper runs its plain PyTorch version for a tensor on the CPU and
@@ -46,7 +48,7 @@ import torch
 from pdfnet_tpu_torch.ops import cuda_build
 
 launches: Dict[str, int] = {"sa_group_l1": 0, "sa_group_l2": 0,
-                            "sa_mlp_max": 0}
+                            "sa_mlp_max": 0, "knn": 0}
 
 Folded = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -56,7 +58,8 @@ _GROUP_SIGS = {"sa_group_l1": [_P, _P, _I, _I, _I, _I, _F, _P],
                "sa_group_l2": [_P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
                "knn_group_xyz": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
                "group_feat": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
-                              _P]}
+                              _P],
+               "knn": [_P, _P, _P, _P, _I, _I, _I, _I, _P]}
 _MLP_SIGS = {"sa_mlp_max": [_P, _I, _I, _I, _I, _I, _I, _I, _I,
                             _P, _P, _P, _P, _P, _P, _P, _P]}
 MAX_POINTS = 1024        # csrc/sa_group.cu: N/32 distances per lane
@@ -95,18 +98,23 @@ def _check_cuda(t: torch.Tensor, name: str, dtypes) -> None:
 
 # ---- plain versions --------------------------------------------------------
 
-def knn_plain(xyz: torch.Tensor, num_centers: int, k: int):
-    """The selection every grouping kernel makes: for each of the first S
-    rows of xyz (H, N, 3) float32, the k nearest rows ascending, the lowest
-    index first among equal distances (NaN after +inf) -> (dist (H, S, k),
-    idx (H, S, k))."""
-    ctr = xyz[:, :num_centers]
-    diff = xyz[:, None, :, :] - ctr[:, :, None, :]              # (H, S, N, 3)
+def knn_select_plain(centers: torch.Tensor, points: torch.Tensor, k: int):
+    """Plain version of ``knn``: for each center (H, S, 3) the k nearest of
+    points (H, N, 3), float32, by the exact d2 = (dx*dx + dy*dy) + dz*dz
+    with d = p - c, ascending, the lowest index first among equal distances
+    (NaN after +inf) -> (dist (H, S, k), idx (H, S, k) int64)."""
+    diff = points[:, None, :, :] - centers[:, :, None, :]       # (H, S, N, 3)
     d2 = ((diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1])
           + diff[..., 2] * diff[..., 2])
     # stable ascending sort: ties keep index order, the TPU kernels' rule
     dist, idx = torch.sort(d2, dim=-1, stable=True)
     return dist[..., :k], idx[..., :k]
+
+
+def knn_plain(xyz: torch.Tensor, num_centers: int, k: int):
+    """The selection every grouping kernel makes: ``knn_select_plain`` with
+    the first S rows of xyz (H, N, 3) as the centers."""
+    return knn_select_plain(xyz[:, :num_centers], xyz, k)
 
 
 def group_select_plain(feat: torch.Tensor, num_centers: int, k: int,
@@ -242,6 +250,31 @@ def sa_mlp_max(grouped: torch.Tensor, folded: Folded,
            "sa_mlp_max")
     launches["sa_mlp_max"] += 1
     return out
+
+
+def knn(centers: torch.Tensor, points: torch.Tensor, k: int):
+    """Exact k nearest points per center (``knn_pallas``): centers (H, S, 3)
+    and points (H, N, 3) float32 -> (dist (H, S, k) float32 ascending, idx
+    (H, S, k) int32 (int64 from the plain version)).  Any S on the card."""
+    if centers.device.type == "cpu" and points.device.type == "cpu":
+        return knn_select_plain(centers, points, k)
+    for t in (centers, points):
+        _check_cuda(t, "knn", (torch.float32,))
+    H, S, C = centers.shape
+    N = points.shape[1]
+    if (C != 3 or points.shape != (H, N, 3) or points.device != centers.device
+            or N > MAX_POINTS or not 1 <= k <= N):
+        raise ValueError(f"knn: needs centers (H, S, 3) and points (H, N, 3) "
+                         f"on one device, N <= {MAX_POINTS}, k <= N; got "
+                         f"{tuple(centers.shape)}, {tuple(points.shape)}, "
+                         f"k={k}")
+    dist = torch.empty((H, S, k), dtype=torch.float32, device=points.device)
+    idx = torch.empty((H, S, k), dtype=torch.int32, device=points.device)
+    lib = cuda_build.library("sa_group.cu", _GROUP_SIGS)
+    _check(lib.knn(centers.data_ptr(), points.data_ptr(), dist.data_ptr(),
+                   idx.data_ptr(), H, N, S, k, _stream()), "knn")
+    launches["knn"] += 1
+    return dist, idx
 
 
 # ---- one set-abstraction level ---------------------------------------------

@@ -1,0 +1,154 @@
+"""Fused eval-mode ResNet bottleneck blocks (port of
+``pdfnet_tpu/ops/pallas_trunk.py``): BatchNorm folded into the convolutions
+and one whole block per kernel launch, the map read once and written once.
+
+==================== ================================================ =======================
+wrapper              replaces (pdfnet_tpu/ops/pallas_trunk.py)         source
+==================== ================================================ =======================
+fused_bottleneck     ``_block_kernel_s1`` :148 (stride 1) and          csrc/trunk_block.cu
+                     ``_block_kernel_s2`` :198 (stride 2), both via
+                     ``fused_bottleneck`` :267
+==================== ================================================ =======================
+
+The wrapper runs the plain version for a tensor on the CPU and launches the
+kernel for a CUDA tensor, or raises: there is no fallback.  ``launches``
+counts kernel launches by stride (``fused_bottleneck_s1`` /
+``fused_bottleneck_s2``); the plain version never touches it.
+
+Maps are NHWC (the JAX layout): the trunk runs in ``torch.channels_last``
+when it routes blocks here, so ``x.permute(0, 2, 3, 1)`` of its NCHW maps is
+already contiguous and no block copies its input or output.
+
+Rounding follows the TPU kernel, not the unfused block: weights in the
+compute dtype (the map's dtype), biases float32, products accumulated in
+float32; y1 = relu(. + b1), y2 = relu(. + b2), y3 = . + b3 and a projected
+shortcut are each rounded to the compute dtype, and the output is
+relu(y3 + shortcut) in the compute dtype (``pallas_trunk.py:167-180,
+224-236``).  The 3x3 pads conv2's input (after conv1 + BN + ReLU) with zeros;
+stride 2 sits on the 3x3 and on the projection.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from pdfnet_tpu_torch.models.layers import BN_EPS
+from pdfnet_tpu_torch.ops import cuda_build
+from pdfnet_tpu_torch.ops.sa import _check, _check_cuda, _stream
+
+launches: Dict[str, int] = {"fused_bottleneck_s1": 0,
+                            "fused_bottleneck_s2": 0}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGS = {"fused_bottleneck": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]}
+CHANNEL_MULTIPLE = 32    # csrc/trunk_block.cu: depth of a staged chunk
+
+Folded = Dict[str, torch.Tensor]
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def fold_conv_bn(conv: torch.nn.Conv2d, norm) -> tuple:
+    """Eval-mode BatchNorm folded into the (bias-free) conv before it, in
+    float32 (``fold_conv_bn``, ``pallas_trunk.py:42-55``): (w (kh, kw, Cin,
+    Cout), b (Cout,))."""
+    inv = norm.weight.float() * torch.rsqrt(norm.running_var.float() + BN_EPS)
+    w = conv.weight.float().permute(2, 3, 1, 0) * inv
+    b = norm.bias.float() - norm.running_mean.float() * inv
+    return w, b
+
+
+def fold_bottleneck(block) -> Folded:
+    """BN-folded weights of one ``models.resnet.Bottleneck``, keyed as
+    ``fold_bottleneck`` (``pallas_trunk.py:58-69``): w1 (Cin, Cw), w2 (3, 3,
+    Cw, Cw), w3 (Cw, Cout) and, when projected, wp (Cin, Cout); biases
+    b1, b2, b3[, bp]."""
+    w1, b1 = fold_conv_bn(block.conv1, block.bn1)
+    w2, b2 = fold_conv_bn(block.conv2, block.bn2)
+    w3, b3 = fold_conv_bn(block.conv3, block.bn3)
+    out = {"w1": w1[0, 0], "b1": b1, "w2": w2, "b2": b2, "w3": w3[0, 0],
+           "b3": b3}
+    if block.project:
+        wp, bp = fold_conv_bn(block.proj_conv, block.proj_bn)
+        out["wp"], out["bp"] = wp[0, 0], bp
+    return out
+
+
+def _check_args(x: torch.Tensor, folded: Folded, stride: int, project: bool):
+    if stride not in (1, 2) or (stride == 2 and not project):
+        raise ValueError(f"fused_bottleneck: stride {stride}, project "
+                         f"{project} (stride 2 is always projected)")
+    B, H, W, Cin = x.shape
+    Cw, Cout = folded["w1"].shape[1], folded["w3"].shape[1]
+    if (folded["w1"].shape[0] != Cin or folded["w2"].shape != (3, 3, Cw, Cw)
+            or (project and folded["wp"].shape != (Cin, Cout))
+            or (not project and Cin != Cout)
+            or (stride == 2 and (H % 2 or W % 2))):
+        raise ValueError(f"fused_bottleneck: map {tuple(x.shape)} does not "
+                         f"fit the weights (Cw {Cw}, Cout {Cout})")
+    return B, H, W, Cin, Cw, Cout
+
+
+def fused_bottleneck_plain(x: torch.Tensor, folded: Folded, stride: int = 1,
+                           project: bool = False) -> torch.Tensor:
+    """Plain version of ``fused_bottleneck`` with the kernel's rounding
+    points: x (B, H, W, Cin) NHWC in the compute dtype -> (B, H/stride,
+    W/stride, Cout) of x's dtype.  Rounding an operand to the compute dtype
+    and multiplying in float32 is a product in that dtype with a float32
+    accumulator (a bf16 x bf16 product is exact in float32)."""
+    _check_args(x, folded, stride, project)
+    cdt = x.dtype
+    rnd = lambda t: t.to(cdt).float()
+    with torch.autocast(x.device.type, enabled=False):
+        xf = x.float()
+        y1 = rnd(torch.relu(xf @ rnd(folded["w1"]) + folded["b1"].float()))
+        y2 = F.conv2d(y1.permute(0, 3, 1, 2),
+                      rnd(folded["w2"]).permute(3, 2, 0, 1), stride=stride,
+                      padding=1).permute(0, 2, 3, 1)
+        y2 = rnd(torch.relu(y2 + folded["b2"].float()))
+        y3 = rnd(y2 @ rnd(folded["w3"]) + folded["b3"].float())
+        xs = xf[:, ::stride, ::stride]
+        sc = (rnd(xs @ rnd(folded["wp"]) + folded["bp"].float()) if project
+              else xs)
+        return torch.relu(y3 + sc).to(cdt)
+
+
+def fused_bottleneck(x: torch.Tensor, folded: Folded, stride: int = 1,
+                     project: bool = False) -> torch.Tensor:
+    """One whole bottleneck block: x (B, H, W, Cin) NHWC float32 or bfloat16
+    (the compute dtype) -> (B, H/stride, W/stride, Cout) of x's dtype."""
+    if x.device.type == "cpu":
+        return fused_bottleneck_plain(x, folded, stride, project)
+    _check_cuda(x, "fused_bottleneck", (torch.float32, torch.bfloat16))
+    B, H, W, Cin, Cw, Cout = _check_args(x, folded, stride, project)
+    if Cin % CHANNEL_MULTIPLE or Cw % CHANNEL_MULTIPLE:
+        raise ValueError(f"fused_bottleneck: Cin {Cin} and Cw {Cw} must be "
+                         f"multiples of {CHANNEL_MULTIPLE}")
+    names = ("w1", "b1", "w2", "b2", "w3", "b3") + (("wp", "bp") if project
+                                                     else ())
+    params = {}
+    for n in names:
+        t = folded[n]
+        if t.device != x.device:
+            raise ValueError("fused_bottleneck: weights on another device")
+        params[n] = (t.float() if n.startswith("b") else t.to(x.dtype)
+                     ).contiguous()
+    out = torch.empty((B, H // stride, W // stride, Cout), dtype=x.dtype,
+                      device=x.device)
+    lib = cuda_build.library("trunk_block.cu", _SIGS)
+    ptr = lambda n: params[n].data_ptr() if n in params else None
+    _check(lib.fused_bottleneck(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), B, H, W, Cin, Cw, Cout,
+        stride, int(project), ptr("w1"), ptr("b1"), ptr("w2"), ptr("b2"),
+        ptr("w3"), ptr("b3"), ptr("wp"), ptr("bp"), out.data_ptr(),
+        _stream()), "fused_bottleneck")
+    launches[f"fused_bottleneck_s{stride}"] += 1
+    return out

@@ -1,5 +1,6 @@
 """Package hygiene of the PyTorch port: it imports nothing of JAX or of the
-JAX package, and its ``Config`` mirrors ``pdfnet_tpu.config.Config``."""
+JAX package, its ``Config`` mirrors ``pdfnet_tpu.config.Config``, and
+``build_model`` refuses every Config value whose JAX path it lacks."""
 
 import dataclasses
 import os
@@ -8,8 +9,11 @@ import re
 import subprocess
 import sys
 
+import pytest
+
 import pdfnet_tpu_torch
 from pdfnet_tpu.config import Config as JaxConfig
+from pdfnet_tpu_torch import HandNet, build_model
 from pdfnet_tpu_torch.config import Config as PortConfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -66,3 +70,35 @@ def test_config_mirrors_jax_config():
         assert getattr(p, name) == getattr(j, name), name
     q = p.replace(photometric_loss=True, off=True)
     assert q.heads == j.replace(photometric_loss=True, off=True).heads
+
+
+def test_new_modules_are_walked():
+    """The serving path's modules are among those imported above."""
+    mods = _modules()
+    for m in ("ops.pointcloud", "ops.trunk", "ops.grouping"):
+        assert f"pdfnet_tpu_torch.{m}" in mods, m
+
+
+@pytest.mark.parametrize("field,value", [
+    ("knn_method", "approx"), ("sample_strategy", "FPS"),
+    ("input_feature_num", 6), ("use_img_attn", True), ("s2d_stem", True),
+    ("patch_heads", True)])
+def test_build_model_refuses_what_the_port_lacks(field, value):
+    """A Config value whose JAX path the port does not have is refused by
+    name, not run through another path."""
+    cfg = PortConfig().replace(**{field: value})
+    with pytest.raises(NotImplementedError, match=f"{field}="):
+        build_model(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("knn_method", ["topk", "pallas", "pallas_fused",
+                                        "pallas_sa"])
+def test_model_honours_knn_method_and_fused_trunk(knn_method):
+    """The values the port implements reach the modules that read them
+    (``build_model`` is ``HandNet`` plus the weight initialisation)."""
+    cfg = PortConfig(default_resolution=64, sample_num=256,
+                     sample_num_level1=128, sample_num_level2=128, knn_k=8,
+                     knn_method=knn_method, fused_trunk=True)
+    model = HandNet(cfg)
+    assert model.encoder.pointnet.knn_method == knn_method
+    assert model.encoder.resnet.fused_eval
