@@ -12,8 +12,11 @@ Phases, each of which fails the run:
 3. every kernel at the shapes of its path at batch 8 (16 hands), against
    its plain PyTorch version on the same inputs: the grouping kernels bit
    for bit (identical neighbour selection, exact ties planted), the MLP
-   kernel within a stated tolerance; kernel, plain and bound times; the
-   train grouping ops' backward passes on the card against the CPU;
+   and bottleneck kernels within stated tolerances; kernel, plain and bound
+   times, the MLP and bottleneck kernels timed by CUDA-graph replay beside
+   a yardstick timed the same way (three cuBLAS matmuls with bias, ReLU
+   and the max; cuDNN on the folded weights), which the port never calls;
+   the train grouping ops' backward passes on the card against the CPU;
 4. the batched RGB-D eval step (``build_model`` + ``make_eval_step``) at the
    full width of the default ``Config`` with seeded random weights and
    jittered BatchNorm statistics, on the bench's batch layout: output shapes
@@ -145,6 +148,36 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """ms of one call of ``fn`` by CUDA-graph replay: ``iters`` calls
+    captured in one graph after a warm-up call, the graph replayed
+    ``replays`` times between CUDA events, so that host launch gaps count
+    for nothing.  Back-to-back calls find their inputs in L2, as
+    ``time_ms``'s do."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (iters * replays)
+    del graph
+    return ms
+
+
 # ---- phase 3: kernels against their plain versions -------------------------
 
 def kernel_inputs(cfg, gen, dev):
@@ -211,7 +244,8 @@ def kernel_phase(cfg, dev):
     w2 = folded_mlp(sa.MLP_WIDTHS[1], feat.shape[-1], gen, dev)
     steps = {}
 
-    def record(name, case, err, ms, plain_ms, bound, step_case, extra=""):
+    def record(name, case, err, ms, plain_ms, bound, step_case, extra="",
+               yardstick_ms=None):
         """step_case: how many times one step of the path makes this call
         (True counts once); the JSON line sums the step's calls."""
         print(f"kernel {name} [{case}]: max_abs_err {err:.3e} ms {ms:.4f} "
@@ -220,12 +254,14 @@ def kernel_phase(cfg, dev):
         if step_case:
             n = int(step_case)
             s = steps.setdefault(name, dict(err=0.0, ms=0.0, plain=0.0,
-                                            bound=0.0, by={}))
+                                            bound=0.0, by={}, yard=None))
             s["err"] = max(s["err"], err)
             s["ms"] += n * ms
             s["plain"] += n * plain_ms
             s["bound"] += n * bound[0]
             s["by"][bound[1]] = s["by"].get(bound[1], 0.0) + n * bound[0]
+            if yardstick_ms is not None:
+                s["yard"] = (s["yard"] or 0.0) + n * yardstick_ms
 
     # sa_group_l1: float32 points, as on the main path
     got = sa.sa_group_l1(xyz, S1, k, r1)
@@ -256,15 +292,18 @@ def kernel_phase(cfg, dev):
                group_bound(H, S1, f.shape[-1], S2, k, f.element_size()),
                step_case)
 
-    # sa_mlp_max at both levels' shapes, float32 and bf16 compute
+    # sa_mlp_max at both levels' shapes, float32 and bf16 compute; the
+    # weights already in the compute dtype, so that the timed call is the
+    # kernel alone (the model casts them once a step, ops/sa.py)
     g1 = sa.group_plain(xyz, S1, k, r1)
     g2 = sa.group_plain(feat, S2, k, r2)
     for level, g, w in ((1, g1, w1), (2, g2, w2)):
         for cdt in (torch.float32, torch.bfloat16):
             # on the main path level 2 groups bf16 rows in bf16 mode
             gin = g.to(cdt).contiguous() if level == 2 else g
-            got = sa.sa_mlp_max(gin, w, cdt)
-            want = sa.mlp_max_plain(gin, w, cdt)
+            wc = [(wi.to(cdt), bi) for wi, bi in w]
+            got = sa.sa_mlp_max(gin, wc, cdt)
+            want = sa.mlp_max_plain(gin, wc, cdt)
             torch.cuda.synchronize()
             tol = MLP_TOL_BF16 if cdt == torch.bfloat16 else MLP_TOL_F32
             err = (got - want).abs().max().item()
@@ -272,12 +311,18 @@ def kernel_phase(cfg, dev):
             check(ok, f"sa_mlp_max level {level} [{cdt}] outside {tol} "
                       f"(max abs {err})")
             C = gin.shape[-1]
+            wb = [(wi.to(cdt), bi.to(cdt)) for wi, bi in w]
+            yard = graph_ms(lambda: matmul_mlp_max(gin, wb))
             record("sa_mlp_max", f"level {level} {str(cdt).split('.')[-1]}",
-                   err, time_ms(lambda: sa.sa_mlp_max(gin, w, cdt)),
-                   time_ms(lambda: sa.mlp_max_plain(gin, w, cdt)),
+                   err, graph_ms(lambda: sa.sa_mlp_max(gin, wc, cdt)),
+                   time_ms(lambda: sa.mlp_max_plain(gin, wc, cdt)),
                    mlp_bound(H, gin.shape[1], k, C, sa.MLP_WIDTHS[level - 1],
                              gin.element_size(), cdt == torch.bfloat16),
-                   cdt == torch.bfloat16)
+                   cdt == torch.bfloat16,
+                   f"; eager_ms "
+                   f"{time_ms(lambda: sa.sa_mlp_max(gin, wc, cdt)):.4f}; "
+                   f"yardstick_ms {yard:.4f} (3 torch.matmul + bias, ReLU, "
+                   f"amax; graph replay)", yard)
 
     # knn_group_xyz: float32 points, the train path's level 1
     got = grouping.knn_group_xyz(xyz, S1, k)
@@ -365,6 +410,16 @@ def grouping_backward_check(cfg, xyz, feat, gen) -> None:
               f"{name} backward on the card differs from the CPU ({err})")
 
 
+def matmul_mlp_max(g, params):
+    """The yardstick of ``sa_mlp_max``: three ``torch.matmul`` with bias
+    and ReLU in the weights' dtype, then the max over k (timed only)."""
+    import torch
+    h = g.to(params[0][0].dtype)
+    for w, b in params:
+        h = torch.relu(torch.matmul(h, w) + b)
+    return h.amax(dim=2).float()
+
+
 def knn_bound(H, N, S, k):
     """(ms, bound_by): points and centers read once, each neighbour's int32
     index and float32 d2 written once; d2 and one compare per (center,
@@ -445,10 +500,35 @@ def random_bottleneck(cin, cw, stride, gen):
     return block.eval()
 
 
+def cudnn_block(x, folded, stride, project, dt):
+    """The yardstick of ``fused_bottleneck`` (timed only): cuDNN on the
+    folded weights in ``dt``, three ``F.conv2d`` with bias (and the
+    projection) on the channels_last map, ReLU and the residual add.
+    Returns a function of the NHWC map."""
+    import torch
+    import torch.nn.functional as F
+
+    def conv_w(w):                       # (kh, kw, Cin, Cout) or (Cin, Cout)
+        w = w if w.dim() == 4 else w[None, None]
+        return w.permute(3, 2, 0, 1).to(dt).contiguous(
+            memory_format=torch.channels_last)
+    w = {n: conv_w(v) if n.startswith("w") else v.to(dt)
+         for n, v in folded.items()}
+
+    def run(nhwc):
+        x = nhwc.permute(0, 3, 1, 2)     # a channels_last view
+        y = F.relu(F.conv2d(x, w["w1"], w["b1"]))
+        y = F.relu(F.conv2d(y, w["w2"], w["b2"], stride=stride, padding=1))
+        sc = F.conv2d(x, w["wp"], w["bp"], stride=stride) if project else x
+        return F.relu(F.conv2d(y, w["w3"], w["b3"]) + sc)
+    return run
+
+
 def trunk_check(gen, dev, record) -> None:
     """``fused_bottleneck`` (K6) at the ResNet-50 blocks' shapes at batch 8,
-    float32 and bf16, against its plain version; beside each, the port's
-    unfused eval ``Bottleneck`` (cuDNN convolutions) on the same map."""
+    float32 and bf16, against its plain version; beside each, cuDNN on the
+    folded weights (both by CUDA-graph replay) and the port's unfused eval
+    ``Bottleneck`` (cuDNN convolutions and BatchNorm under autocast)."""
     import torch
     from pdfnet_tpu_torch.ops import trunk
 
@@ -461,8 +541,12 @@ def trunk_check(gen, dev, record) -> None:
         for dt in (torch.float32, torch.bfloat16):
             bf16 = dt == torch.bfloat16
             x = x32.to(dev, dt).contiguous()
-            got = trunk.fused_bottleneck(x, folded, stride, project)
-            want = trunk.fused_bottleneck_plain(x, folded, stride, project)
+            # weights already in the compute dtype, so that the timed call
+            # is the kernel alone (the trunk casts them once a call)
+            fw = {n: v.to(dt) if n.startswith("w") else v
+                  for n, v in folded.items()}
+            got = trunk.fused_bottleneck(x, fw, stride, project)
+            want = trunk.fused_bottleneck_plain(x, fw, stride, project)
             torch.cuda.synchronize()
             scale = want.float().abs().max().item()
             err = (got.float() - want.float()).abs().max().item()
@@ -474,17 +558,21 @@ def trunk_check(gen, dev, record) -> None:
             with torch.inference_mode(), torch.autocast(
                     dev.type, dtype=torch.bfloat16, enabled=bf16):
                 unfused = time_ms(lambda: block(nchw))
+            yard_fn = cudnn_block(x, folded, stride, project, dt)
+            with torch.inference_mode():
+                yard = graph_ms(lambda: yard_fn(x))
             per_step = (TRUNK_PER_STEP.get(name, 0) if stride == 1 else 1)
+            run = lambda: trunk.fused_bottleneck(x, fw, stride, project)
             record(f"fused_bottleneck_s{stride}",
-                   f"{name} {str(dt).split('.')[-1]}", err,
-                   time_ms(lambda: trunk.fused_bottleneck(x, folded, stride,
-                                                          project)),
+                   f"{name} {str(dt).split('.')[-1]}", err, graph_ms(run),
                    time_ms(lambda: trunk.fused_bottleneck_plain(
-                       x, folded, stride, project), iters=5),
+                       x, fw, stride, project), iters=5),
                    trunk_bound(BATCH, hw, cin, cw, stride, x.element_size(),
                                bf16), per_step if bf16 else 0,
-                   f"; scale {scale:.3e}; unfused Bottleneck (cuDNN) "
-                   f"{unfused:.4f} ms")
+                   f"; scale {scale:.3e}; eager_ms {time_ms(run):.4f}; "
+                   f"yardstick_ms {yard:.4f} (cuDNN on the folded weights, "
+                   f"graph replay); unfused Bottleneck (cuDNN, eager) "
+                   f"{unfused:.4f} ms", yard)
         del block, folded, x32
 
 
@@ -1025,7 +1113,9 @@ def profile(fn, label: str, steps: int = 5) -> None:
     own_ms = sum(e.self_device_time_total for e in kernels
                  if any(n in e.key for n in ("sa_group_kernel",
                                              "sa_mlp_max_kernel",
-                                             "bottleneck_kernel"))
+                                             "sa_mlp_tc_kernel",
+                                             "bottleneck_kernel",
+                                             "bottleneck_tc_kernel"))
                  ) / 1e3 / steps
     print(f"profile [{label}]: wall {wall:.3f} ms/step, device "
           f"{device:.3f} ms/step (busy {device / wall:.3f}), the port's "
@@ -1102,7 +1192,7 @@ def main() -> int:
             "max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain"],
             "bound_ms": s["bound"],
             "bound_by": max(s["by"], key=s["by"].get),
-            "library_ms": None})
+            "library_ms": None, "yardstick_ms": s["yard"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,31 +16,56 @@
 // strided 3x3 at the even rows and columns directly (the TPU kernel computes
 // it at full resolution and subsamples: the same sums).
 //
-// Design: one block of 256 threads per (image, tile of TR output rows).
-// y1 for the TR*S+2-S halo'd input rows lives in shared memory as float32
-// values rounded to T, with a zero column on each side and zero rows outside
-// the map (the 3x3 pads conv2's input, after conv1+BN+ReLU); y2 for the
-// tile's output pixels follows it.  Each of the three products (and the
-// projection) is a tiled matrix product: 64 rows x 128 columns per pass,
-// each thread 4 rows x 8 columns, depth staged 32 at a time (weights always,
-// x rows when they come from device memory; y1 and y2 are read in place,
-// the 3x3's taps addressed into the padded y1).  The products run as float32
-// FMAs on operands that are exact in float32 (a bf16 x bf16 product is), so
-// they match a bf16 matrix unit with a float32 accumulator up to the order
-// of the sums.
+// Two bodies share this file.
 //
-// Bound on the H100: at the main path's shapes (layer2/3 stride 1, batch 8)
-// ~10.3 GFLOP a block at the bf16 tensor-core rate (~0.010 ms) against
-// 19-38 MB of map read and written (~0.006-0.011 ms).  This simple kernel
-// runs its products on the float32 CUDA cores (67 TFLOP/s), recomputes conv1
-// on the halo rows and leaves tiles partly empty where the pixel count is not
-// a multiple of 64, so it is far from that bound; tensor-core tiles are
-// later work.
+// bf16 at stride 1 (bottleneck_tc_kernel, the serving path's 8 blocks a
+// step): the products on the tensor cores.  One block of 8 warps per (image,
+// tile of TR whole output rows); TR comes from the caller
+// (ops/trunk.rows_per_block), which fills the 132 SMs at the main shapes:
+// TR = 3 at layer2 (48x48, 128 blocks at batch 8; conv1 on 5 input rows per
+// 3 output rows, +16 % operations) and TR = 2 at layer3 (24x24, 96 blocks;
+// 4 per 2, +24 %).  y1 (the TR+2 halo'd input rows, a zero column on each
+// side, zero rows outside the map) and y2 live in shared memory as bf16, the
+// values they are rounded to anyway, each pixel's channels padded by 8 so
+// that ldmatrix's eight 16-byte rows fall in distinct banks.  Each product
+// is a pass of 48 rows x 64*NI columns: the 8 warps split the columns, each
+// warp holds 3 x NI m16n8 float32 accumulators and runs
+// mma.sync.m16n8k16 (bf16 in, float32 accumulate), A fragments by ldmatrix
+// from row addresses (x rows staged by cp.async for conv1, y1 read in place
+// at the 3x3's shifted taps, y2 in place), B fragments by ldmatrix.trans
+// from weight chunks of depth 64 staged as bf16 by cp.async, double
+// buffered, so that the next chunk loads while one multiplies.  48
+// rows divide every pass at the main shapes (240/144 rows at layer2, 96/48
+// at layer3).  mma.sync and not wgmma: A rows are gathered per lane (the
+// 3x3 taps, the halo), which ldmatrix takes as it is and wgmma's
+// shared-memory descriptors do not; this keeps one simple tile for all
+// three products.  Takes Cin % 64 == 0, Cw % 128 == 0, no projection (every
+// stride-1 block the trunk routes); ops/trunk.check_tc_shape refuses the
+// rest by name.
+//
+// float32 at either stride, and bf16 at stride 2 (bottleneck_kernel, the
+// first body, on no path in bf16): float32 FMAs on the CUDA cores, y1/y2 as
+// float32 in shared memory, 64 x 128 tiles, each thread 4 rows x 8 columns,
+// depth staged 32 at a time.  A float32 product on the tensor cores would
+// be TF32, and the float32 contract is true float32.
+//
+// Bound on the H100 (NVIDIA H100 80GB HBM3, 700 W): at the main path's
+// shapes (layer2/3 stride 1, batch 8) ~10.3 GFLOP a block at the bf16
+// tensor-core rate (~0.010 ms) against 19-38 MB of map read and written
+// (~0.006-0.011 ms): operations, by a little.  The tensor-core body
+// measured 0.12-0.13 ms a call at layer2_1 and at layer3_1 (chip_smoke.py,
+// CUDA-graph replay, NVIDIA H100 80GB HBM3 at 700 W), against 0.11 / 0.07
+// ms for cuDNN's three convolutions on the same folded weights.  What holds it
+// there: each block streams every weight chunk from L2 once per 48-row
+// pass, 1.9 MB (layer2) and 2.7 MB (layer3) a block, ~250 MB a call.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <initializer_list>
+
+#include "mma_util.cuh"
 
 namespace {
 
@@ -332,6 +357,272 @@ int dispatch(int stride, int project, const void* x, const void* w1,
                                        B, s, st);
 }
 
+// ---- bf16, stride 1: the tensor-core body --------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;               // 8 warps split a pass's columns
+constexpr int kMI = 3;                      // m16 tiles per pass
+constexpr int kMT = 16 * kMI;               // rows per pass
+constexpr int kKC = 64;                     // depth of one staged chunk
+constexpr int kStages = 2;                  // chunks in the ring
+constexpr int kAStride = kKC + 8;           // staged x row (elements)
+constexpr int kAStage = kMT * kAStride;     // one staged x chunk
+constexpr int kNIMax = 4;                   // n8 tiles per warp, at most
+constexpr int kBStage = kKC * (64 * kNIMax + 8);  // one staged weight chunk
+
+// Mirrored by ops/trunk.tc_smem_bytes.
+__host__ __forceinline__ size_t smem_bytes(int TR, int W, int Cw) {
+  return sizeof(bf16) *
+         (static_cast<size_t>(TR + 2) * (W + 2) * (Cw + 8) +
+          static_cast<size_t>(TR) * W * (Cw + 8) +
+          kStages * (kAStage + kBStage));
+}
+
+// acc = A (kMT rows) @ w[:, n0 : n0 + 64 * NI], w row-major (nk * kKC, ldw).
+// stage_a(kc) issues the cp.async copies of A's chunk kc (or nothing);
+// row_a(i, kc, kk) is the lane's ldmatrix address of m16 tile i at depth
+// kk of chunk kc.  Weight chunks go through bs, a ring of kStages buffers
+// with kStages - 1 chunks in flight while one multiplies (2 stages of depth
+// 64 measured faster than 4 of depth 32).
+template <int NI, typename StageA, typename RowA>
+__device__ __forceinline__ void gemm_pass(float (&acc)[kMI][NI][4],
+                                          const bf16* __restrict__ w, int ldw,
+                                          int n0, int nk, bf16* bs,
+                                          StageA stage_a, RowA row_a) {
+  static_assert(NI % 2 == 0 && NI <= kNIMax, "NI pairs of n8 tiles");
+  constexpr int kBS = 64 * NI + 8;          // staged weight row
+  constexpr int kRowVecs = 8 * NI;          // 16-byte vectors per row
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < kMI; ++i) {
+#pragma unroll
+    for (int j = 0; j < NI; ++j) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.0f;
+    }
+  }
+  auto stage_b = [&](int kc) {
+    bf16* dst = bs + (kc % kStages) * kBStage;
+    const bf16* src = w + static_cast<int64_t>(kc) * kKC * ldw + n0;
+    for (int e = threadIdx.x; e < kKC * kRowVecs; e += kThreads) {
+      const int r = e / kRowVecs, v = e % kRowVecs;
+      mma::cp_async16(dst + r * kBS + v * 8,
+                      src + static_cast<int64_t>(r) * ldw + v * 8, 16);
+    }
+  };
+  for (int kc = 0; kc < kStages - 1; ++kc) {
+    if (kc < nk) {
+      stage_b(kc);
+      stage_a(kc);
+    }
+    mma::cp_async_commit();
+  }
+  const int b_off = mma::b_lane_offset(lane, kBS) + warp * NI * 8;
+  for (int kc = 0; kc < nk; ++kc) {
+    mma::cp_async_wait<kStages - 2>();
+    // chunk kc is in place for every thread, and every thread is done with
+    // chunk kc - 1, whose buffer the next copy fills
+    __syncthreads();
+    if (kc + kStages - 1 < nk) {
+      stage_b(kc + kStages - 1);
+      stage_a(kc + kStages - 1);
+    }
+    mma::cp_async_commit();
+    const bf16* b = bs + (kc % kStages) * kBStage + b_off;
+#pragma unroll
+    for (int kk = 0; kk < kKC; kk += 16) {
+      uint32_t a[kMI][4];
+#pragma unroll
+      for (int i = 0; i < kMI; ++i) mma::ldmatrix_x4(a[i], row_a(i, kc, kk));
+#pragma unroll
+      for (int j = 0; j < NI; j += 2) {
+        uint32_t bf[4];
+        mma::ldmatrix_x4_trans(bf, b + kk * kBS + j * 8);
+#pragma unroll
+        for (int i = 0; i < kMI; ++i) {
+          mma::mma_bf16(acc[i][j], a[i], bf[0], bf[1]);
+          mma::mma_bf16(acc[i][j + 1], a[i], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  __syncthreads();  // the ring is free for the next pass
+}
+
+// Calls f(m, n, v0, v1) for the two neighbouring columns (n, n + 1) of each
+// accumulator row the lane holds, m < M only; m and n within the pass.
+template <int NI, typename F>
+__device__ __forceinline__ void for_each_pair(const float (&acc)[kMI][NI][4],
+                                              int M, F f) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < kMI; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = i * 16 + (lane >> 2) + h * 8;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        f(m, warp * NI * 8 + j * 8 + (lane & 3) * 2, acc[i][j][2 * h],
+          acc[i][j][2 * h + 1]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
+  *reinterpret_cast<uint32_t*>(p) = mma::pack_bf16(v0, v1);
+}
+
+// kNI: n8 tiles per warp in conv1 and the 3x3 (pass width 64 * kNI, which
+// divides Cw); conv3 always takes 4 (Cout = 4 * Cw, a multiple of 256).
+template <int kNI>
+__global__ void __launch_bounds__(kThreads, 1)
+bottleneck_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                     const float* __restrict__ b1, const bf16* __restrict__ w2,
+                     const float* __restrict__ b2, const bf16* __restrict__ w3,
+                     const float* __restrict__ b3, bf16* __restrict__ out,
+                     Shape s) {
+  extern __shared__ float4 smem4[];
+  const int W = s.W, Wp = s.W + 2, CS = s.Cw + 8;
+  bf16* y1 = reinterpret_cast<bf16*>(smem4);      // (TR + 2, W + 2, CS)
+  bf16* y2 = y1 + (s.TR + 2) * Wp * CS;           // (TR * W, CS)
+  bf16* as = y2 + s.TR * W * CS;                  // kStages x (kMT, kAStride)
+  bf16* bs = as + kStages * kAStage;              // kStages x kBStage
+
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * s.TR;               // first output row
+  const bf16* xb = x + static_cast<int64_t>(b) * s.H * W * s.Cin;
+
+  {
+    uint4* p = reinterpret_cast<uint4*>(y1);
+    const int n = (s.TR + 2) * Wp * CS / 8;
+    for (int e = threadIdx.x; e < n; e += kThreads) {
+      p[e] = make_uint4(0, 0, 0, 0);
+    }
+  }
+  __syncthreads();
+
+  // ---- y1 = round(relu(x @ w1 + b1)) on the halo'd input rows in the map
+  const int g_lo = max(r0 - 1, 0), g_hi = min(r0 + s.TR + 1, s.H);
+  const int M1 = (g_hi - g_lo) * W;
+  const bf16* x1 = xb + static_cast<int64_t>(g_lo) * W * s.Cin;
+  bf16* y1_first = y1 + (g_lo - (r0 - 1)) * Wp * CS;   // y1 row of g_lo
+  float acc[kMI][kNI][4];
+  for (int m0 = 0; m0 < M1; m0 += kMT) {
+    auto stage_x = [&](int kc) {
+      bf16* dst = as + (kc % kStages) * kAStage;
+      for (int e = threadIdx.x; e < kMT * kKC / 8; e += kThreads) {
+        const int r = e / (kKC / 8), v = e % (kKC / 8);
+        const bool ok = m0 + r < M1;
+        const bf16* src =
+            ok ? x1 + static_cast<int64_t>(m0 + r) * s.Cin + kc * kKC + v * 8
+               : x;
+        mma::cp_async16(dst + r * kAStride + v * 8, src, ok ? 16 : 0);
+      }
+    };
+    const int a_off = (lane & 15) * kAStride + (lane >> 4) * 8;
+    auto row_x = [&](int i, int kc, int kk) {
+      return as + (kc % kStages) * kAStage + i * 16 * kAStride + a_off + kk;
+    };
+    for (int n0 = 0; n0 < s.Cw; n0 += 64 * kNI) {
+      gemm_pass<kNI>(acc, w1, s.Cw, n0, s.Cin / kKC, bs, stage_x, row_x);
+      for_each_pair<kNI>(acc, M1 - m0, [&](int m, int n, float v0, float v1) {
+        const int p = m0 + m;
+        n += n0;
+        store2(y1_first + ((p / W) * Wp + p % W + 1) * CS + n,
+               fmaxf(v0 + b1[n], 0.0f), fmaxf(v1 + b1[n + 1], 0.0f));
+      });
+    }
+  }
+  __syncthreads();
+
+  // ---- y2 = round(relu(conv3x3(y1) + b2)) at the tile's output pixels
+  const int M2 = min(s.TR, s.H - r0) * W;
+  auto no_stage = [](int) {};
+  for (int m0 = 0; m0 < M2; m0 += kMT) {
+    const bf16* rows[kMI];             // the lane's row at tap (0, 0)
+#pragma unroll
+    for (int i = 0; i < kMI; ++i) {
+      const int m = min(m0 + i * 16 + (lane & 15), M2 - 1);
+      rows[i] = y1 + ((m / W) * Wp + m % W) * CS + (lane >> 4) * 8;
+    }
+    auto row_y1 = [&](int i, int kc, int kk) {
+      const int k = kc * kKC, tap = k / s.Cw;
+      return rows[i] + ((tap / 3) * Wp + tap % 3) * CS + k % s.Cw + kk;
+    };
+    for (int n0 = 0; n0 < s.Cw; n0 += 64 * kNI) {
+      gemm_pass<kNI>(acc, w2, s.Cw, n0, 9 * s.Cw / kKC, bs, no_stage, row_y1);
+      for_each_pair<kNI>(acc, M2 - m0, [&](int m, int n, float v0, float v1) {
+        n += n0;
+        store2(y2 + (m0 + m) * CS + n, fmaxf(v0 + b2[n], 0.0f),
+               fmaxf(v1 + b2[n + 1], 0.0f));
+      });
+    }
+  }
+  __syncthreads();
+
+  // ---- out = relu(round(y2 @ w3 + b3) + x)
+  const bf16* xs = xb + static_cast<int64_t>(r0) * W * s.Cin;
+  bf16* ob = out + (static_cast<int64_t>(b) * s.Ho + r0) * W * s.Cout;
+  float acc3[kMI][4][4];
+  for (int m0 = 0; m0 < M2; m0 += kMT) {
+    const bf16* rows[kMI];
+#pragma unroll
+    for (int i = 0; i < kMI; ++i) {
+      rows[i] = y2 + min(m0 + i * 16 + (lane & 15), M2 - 1) * CS +
+                (lane >> 4) * 8;
+    }
+    auto row_y2 = [&](int i, int kc, int kk) {
+      return rows[i] + kc * kKC + kk;
+    };
+    for (int n0 = 0; n0 < s.Cout; n0 += 256) {
+      gemm_pass<4>(acc3, w3, s.Cout, n0, s.Cw / kKC, bs, no_stage, row_y2);
+      for_each_pair<4>(acc3, M2 - m0, [&](int m, int n, float v0, float v1) {
+        n += n0;
+        const int64_t p = static_cast<int64_t>(m0 + m);
+        const __nv_bfloat162 sc =
+            *reinterpret_cast<const __nv_bfloat162*>(xs + p * s.Cin + n);
+        const float y0 = round_to<bf16>(v0 + b3[n]);
+        const float y1v = round_to<bf16>(v1 + b3[n + 1]);
+        store2(ob + p * s.Cout + n,
+               fmaxf(y0 + __bfloat162float(sc.x), 0.0f),
+               fmaxf(y1v + __bfloat162float(sc.y), 0.0f));
+      });
+    }
+  }
+}
+
+template <int kNI>
+int launch(const void* x, const void* w1, const void* b1, const void* w2,
+           const void* b2, const void* w3, const void* b3, void* out, int B,
+           const Shape& s, cudaStream_t stream) {
+  auto kernel = bottleneck_tc_kernel<kNI>;
+  // once per instantiation, so that a launch under CUDA-graph capture makes
+  // no other runtime call
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kMaxSmem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  dim3 grid((s.Ho + s.TR - 1) / s.TR, B);
+  kernel<<<grid, kThreads, smem_bytes(s.TR, s.W, s.Cw), stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
+      static_cast<const float*>(b1), static_cast<const bf16*>(w2),
+      static_cast<const float*>(b2), static_cast<const bf16*>(w3),
+      static_cast<const float*>(b3), static_cast<bf16*>(out), s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // x (B, H, W, Cin) NHWC of float32 (bf16 == 0) or bfloat16 (bf16 == 1);
@@ -339,29 +630,50 @@ int dispatch(int stride, int project, const void* x, const void* w1,
 // w3 (Cw, Cout), wp (Cin, Cout) (read when project, always at stride 2);
 // biases float32; out (B, H/stride, W/stride, Cout) NHWC of x's type.
 // Cin and Cw must be multiples of 32; stride 2 needs project and even H, W.
-// Output rows per block: 2 at stride 1 (1 if that does not fit in shared
-// memory), 1 at stride 2.
+// bf16 at stride 1 runs the tensor-core body, which also needs Cin % 64 ==
+// 0, Cw % 128 == 0, no projection and 16-byte aligned x, weights and out,
+// and takes rows_per_block output rows a block (its shared memory must
+// fit).
+// The other bodies ignore rows_per_block: 2 output rows a block at stride 1
+// (1 if that does not fit in shared memory), 1 at stride 2.
 extern "C" int fused_bottleneck(const void* x, int bf16, int B, int H, int W,
                                 int Cin, int Cw, int Cout, int stride,
                                 int project, const void* w1, const void* b1,
                                 const void* w2, const void* b2,
                                 const void* w3, const void* b3,
                                 const void* wp, const void* bp, void* out,
-                                void* stream) {
+                                int rows_per_block, void* stream) {
   if (B < 1 || H < 1 || W < 1 || Cin < kKC || Cin % kKC != 0 || Cw < kKC ||
       Cw % kKC != 0 || Cout < 1 || (stride != 1 && stride != 2) ||
       (stride == 2 && (!project || H % 2 != 0 || W % 2 != 0)) ||
       (!project && Cin != Cout)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  auto st = static_cast<cudaStream_t>(stream);
+  if (bf16 && stride == 1) {
+    Shape s{H, W, Cin, Cw, Cout, H, W, rows_per_block};
+    if (project || Cin % tc::kKC != 0 || Cw % 128 != 0 ||
+        rows_per_block < 1 || rows_per_block > H ||
+        tc::smem_bytes(rows_per_block, W, Cw) > kMaxSmem) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    for (const void* p : {x, w1, w2, w3, static_cast<const void*>(out)}) {
+      if (!tc::aligned16(p)) {
+        return static_cast<int>(cudaErrorMisalignedAddress);
+      }
+    }
+    return Cw % 256 == 0
+               ? tc::launch<4>(x, w1, b1, w2, b2, w3, b3, out, B, s, st)
+               : tc::launch<2>(x, w1, b1, w2, b2, w3, b3, out, B, s, st);
+  }
   Shape s{H, W, Cin, Cw, Cout, H / stride, W / stride, stride == 1 ? 2 : 1};
   if (smem_bytes(s, stride) > kMaxSmem) s.TR = 1;
   if (smem_bytes(s, stride) > kMaxSmem) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto st = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(stride, project, x, w1, b1, w2, b2, w3,
-                                        b3, wp, bp, out, B, s, st)
+  // bf16 reaches this body at stride 2 only
+  return bf16 ? launch<__nv_bfloat16, 2, true>(x, w1, b1, w2, b2, w3, b3, wp,
+                                               bp, out, B, s, st)
               : dispatch<float>(stride, project, x, w1, b1, w2, b2, w3, b3, wp,
                                 bp, out, B, s, st);
 }

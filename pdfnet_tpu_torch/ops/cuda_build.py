@@ -2,8 +2,9 @@
 into shared libraries with a plain C interface, loaded through ctypes.
 
 Each source compiles on its own into ``pdfnet_tpu_torch/_build/`` (listed in
-``.gitignore``), named by a hash of its text and the flags, so an edited
-source rebuilds and an unchanged one is reused.  :func:`build` starts one
+``.gitignore``), named by a hash of its text, the shared headers and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused.  :func:`build` starts one
 nvcc per missing source, all at once, and waits for all of them.  Nothing
 here runs at import: the CPU tests import every module of the package.
 """
@@ -40,8 +41,13 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> str:
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``source``, named by a hash of its text, the shared
+    headers' (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    for name in (source, *headers):
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            digest.update(f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
 

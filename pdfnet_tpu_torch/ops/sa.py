@@ -65,6 +65,34 @@ _MLP_SIGS = {"sa_mlp_max": [_P, _I, _I, _I, _I, _I, _I, _I, _I,
 MAX_POINTS = 1024        # csrc/sa_group.cu: N/32 distances per lane
 MAX_K_MLP = 64           # csrc/sa_mlp.cu: rows per block
 MLP_WIDTHS = ((64, 64, 128), (128, 128, 256))
+MAX_SMEM = 232448        # shared memory a block may use on the H100
+_MLP_TC_CENTERS = 2      # csrc/sa_mlp.cu tc::kCenters
+
+
+def mlp_tc_smem_bytes(C: int, widths: Sequence[int], k: int,
+                      esize: int) -> int:
+    """Shared memory of ``sa_mlp_max``'s bf16 (tensor-core) body
+    (``tc::smem_bytes``): the three bf16 weight matrices, rows padded by 8
+    and the first's depth C rounded up to 16; two buffers of the raw rows
+    of a block's centers (k rows of C elements of ``esize`` bytes each, from
+    the 16-byte boundary below); float32 maxima of each 16-row warp."""
+    F1, F2, F3 = widths
+    c1p = -(-C // 16) * 16
+    raw = -(-(_MLP_TC_CENTERS * k * C * esize + 16) // 16) * 16
+    return (2 * (c1p * (F1 + 8) + F1 * (F2 + 8) + F2 * (F3 + 8)) + 2 * raw
+            + 4 * _MLP_TC_CENTERS * (MAX_K_MLP // 16) * F3)
+
+
+def check_mlp_tc_shape(C: int, widths: Sequence[int], k: int,
+                       esize: int) -> None:
+    """Raise ValueError, naming the limit, where ``sa_mlp_max``'s bf16 body
+    cannot hold the weights and rows in shared memory (both eval levels
+    fit: float32 groups of C = 3 and bf16 groups of C = 131, k = 64)."""
+    need = mlp_tc_smem_bytes(C, widths, k, esize)
+    if need > MAX_SMEM:
+        raise ValueError(f"sa_mlp_max: C={C}, k={k}, {esize}-byte groups, "
+                         f"widths {tuple(widths)} do not fit the bf16 body's "
+                         f"shared memory ({need} > {MAX_SMEM} bytes)")
 
 
 def reset_launches() -> None:
@@ -230,13 +258,15 @@ def sa_mlp_max(grouped: torch.Tensor, folded: Folded,
             or not 1 <= k <= MAX_K_MLP):
         raise ValueError(f"sa_mlp_max: unsupported C={C}, widths={widths}, "
                          f"k={k} (widths {MLP_WIDTHS}, k <= {MAX_K_MLP})")
-    # weights rounded to the compute dtype, carried as float32
+    if bf16:
+        check_mlp_tc_shape(C, widths, k, grouped.element_size())
+    # weights in the compute dtype, biases float32
     params = []
     for w, b in folded:
-        params += [w.to(compute_dtype).float().contiguous(),
-                   b.float().contiguous()]
-    for p in params:
-        _check_cuda(p, "sa_mlp_max", (torch.float32,))
+        params += [w.to(compute_dtype).contiguous(), b.float().contiguous()]
+    for i, p in enumerate(params):
+        _check_cuda(p, "sa_mlp_max",
+                    (compute_dtype if i % 2 == 0 else torch.float32,))
         if p.device != grouped.device:
             raise ValueError("sa_mlp_max: weights on another device")
     out = torch.empty((H, S, widths[-1]), dtype=torch.float32,

@@ -11,7 +11,10 @@ fused_bottleneck     ``_block_kernel_s1`` :148 (stride 1) and          csrc/trun
 ==================== ================================================ =======================
 
 The wrapper runs the plain version for a tensor on the CPU and launches the
-kernel for a CUDA tensor, or raises: there is no fallback.  ``launches``
+kernel for a CUDA tensor, or raises: there is no fallback.  In bf16 at
+stride 1 the kernel runs its tensor-core body, whose shape limits
+``check_tc_shape`` names and whose rows per block ``rows_per_block``
+chooses; float32 and stride 2 run the CUDA-core body.  ``launches``
 counts kernel launches by stride (``fused_bottleneck_s1`` /
 ``fused_bottleneck_s2``); the plain version never touches it.
 
@@ -31,6 +34,7 @@ stride 2 sits on the 3x3 and on the projection.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict
 
 import torch
@@ -38,15 +42,21 @@ import torch.nn.functional as F
 
 from pdfnet_tpu_torch.models.layers import BN_EPS
 from pdfnet_tpu_torch.ops import cuda_build
-from pdfnet_tpu_torch.ops.sa import _check, _check_cuda, _stream
+from pdfnet_tpu_torch.ops.sa import MAX_SMEM, _check, _check_cuda, _stream
 
 launches: Dict[str, int] = {"fused_bottleneck_s1": 0,
                             "fused_bottleneck_s2": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {"fused_bottleneck": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                              _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]}
+                              _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P]}
 CHANNEL_MULTIPLE = 32    # csrc/trunk_block.cu: depth of a staged chunk
+# csrc/trunk_block.cu's tensor-core body (bf16, stride 1): Cin a multiple of
+# its chunk depth, Cw of its narrowest pass, passes of TC_ROWS rows; its
+# shared memory (tc_smem_bytes) within the H100's 227 KB a block
+TC_CIN_MULTIPLE, TC_CW_MULTIPLE, TC_ROWS = 64, 128, 48
+_TC_STAGES = 2 * (TC_ROWS * (64 + 8) + 64 * (4 * 64 + 8))
+H100_SMS = 132
 
 Folded = Dict[str, torch.Tensor]
 
@@ -97,6 +107,59 @@ def _check_args(x: torch.Tensor, folded: Folded, stride: int, project: bool):
     return B, H, W, Cin, Cw, Cout
 
 
+def check_tc_shape(H: int, W: int, Cin: int, Cw: int, project: bool) -> None:
+    """Raise ValueError, naming the limit, for a bf16 stride-1 block that
+    the tensor-core body does not take (every block the trunk routes fits)."""
+    if project:
+        raise ValueError("fused_bottleneck: the bf16 stride-1 body takes "
+                         "unprojected blocks only (project=True)")
+    if Cin % TC_CIN_MULTIPLE or Cw % TC_CW_MULTIPLE:
+        raise ValueError(f"fused_bottleneck: the bf16 stride-1 body needs Cin "
+                         f"a multiple of {TC_CIN_MULTIPLE} and Cw of "
+                         f"{TC_CW_MULTIPLE}; got Cin {Cin}, Cw {Cw}")
+    if tc_smem_bytes(1, W, Cw) > MAX_SMEM:
+        raise ValueError(f"fused_bottleneck: a row of width {W} at Cw {Cw} "
+                         f"does not fit the bf16 stride-1 body's shared "
+                         f"memory ({tc_smem_bytes(1, W, Cw)} > {MAX_SMEM})")
+
+
+def tc_smem_bytes(rows: int, W: int, Cw: int) -> int:
+    """Shared memory of the tensor-core body for ``rows`` output rows a
+    block (``tc::smem_bytes``): bf16 y1 of rows + 2 halo'd rows with a zero
+    column each side, y2, and the double-buffered x and weight chunks; each
+    pixel's channels padded by 8."""
+    return 2 * ((rows + 2) * (W + 2) * (Cw + 8) + rows * W * (Cw + 8)
+                + _TC_STAGES)
+
+
+def rows_per_block(B: int, H: int, W: int, Cin: int, Cw: int,
+                   sms: int = H100_SMS) -> int:
+    """Output rows a block of the tensor-core body takes: the count whose
+    blocks, in waves of one per SM, cost the least, each block costed as its
+    three products' multiply-adds with rows rounded up to whole passes of
+    TC_ROWS (conv1 on the rows + 2 halo rows).  ResNet-50 at 384x384, batch
+    8: 3 at layer2 (128 blocks), 2 at layer3 (96 blocks)."""
+    def passes(m):
+        return -(-m // TC_ROWS) * TC_ROWS
+
+    best = None
+    for rows in range(1, H + 1):
+        if tc_smem_bytes(rows, W, Cw) > MAX_SMEM:
+            break
+        blocks = B * -(-H // rows)
+        work = (passes(min(rows + 2, H) * W) * Cin * Cw
+                + passes(rows * W) * (9 * Cw * Cw + Cw * 4 * Cw))
+        cost = -(-blocks // sms) * work
+        if best is None or cost < best[0]:
+            best = (cost, rows)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def fused_bottleneck_plain(x: torch.Tensor, folded: Folded, stride: int = 1,
                            project: bool = False) -> torch.Tensor:
     """Plain version of ``fused_bottleneck`` with the kernel's rounding
@@ -132,6 +195,10 @@ def fused_bottleneck(x: torch.Tensor, folded: Folded, stride: int = 1,
     if Cin % CHANNEL_MULTIPLE or Cw % CHANNEL_MULTIPLE:
         raise ValueError(f"fused_bottleneck: Cin {Cin} and Cw {Cw} must be "
                          f"multiples of {CHANNEL_MULTIPLE}")
+    rows = 0                 # the CUDA-core bodies choose their own
+    if x.dtype == torch.bfloat16 and stride == 1:
+        check_tc_shape(H, W, Cin, Cw, project)
+        rows = rows_per_block(B, H, W, Cin, Cw, _sm_count(x.device))
     names = ("w1", "b1", "w2", "b2", "w3", "b3") + (("wp", "bp") if project
                                                      else ())
     params = {}
@@ -148,7 +215,7 @@ def fused_bottleneck(x: torch.Tensor, folded: Folded, stride: int = 1,
     _check(lib.fused_bottleneck(
         x.data_ptr(), int(x.dtype == torch.bfloat16), B, H, W, Cin, Cw, Cout,
         stride, int(project), ptr("w1"), ptr("b1"), ptr("w2"), ptr("b2"),
-        ptr("w3"), ptr("b3"), ptr("wp"), ptr("bp"), out.data_ptr(),
+        ptr("w3"), ptr("b3"), ptr("wp"), ptr("bp"), out.data_ptr(), rows,
         _stream()), "fused_bottleneck")
     launches[f"fused_bottleneck_s{stride}"] += 1
     return out

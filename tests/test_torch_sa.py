@@ -255,3 +255,16 @@ def test_pointnet_plus_matches_jax(monkeypatch):
                    torch.from_numpy(choose))
     assert got.shape == (B, 2, 1024)
     np.testing.assert_allclose(got.numpy(), ref, **TOL)
+
+
+@pytest.mark.parametrize("level", [1, 2])
+def test_mlp_tc_shape_guard(level):
+    """Both eval levels' groups (float32 at level 1, bf16 at level 2, k=64)
+    fit the bf16 body's shared memory; a first layer far wider than the
+    eval path's is refused by name."""
+    C, esize = ((3, 4), (131, 2))[level - 1]
+    widths = sa.MLP_WIDTHS[level - 1]
+    sa.check_mlp_tc_shape(C, widths, sa.MAX_K_MLP, esize)
+    assert sa.mlp_tc_smem_bytes(C, widths, sa.MAX_K_MLP, esize) <= sa.MAX_SMEM
+    with pytest.raises(ValueError, match="shared memory"):
+        sa.check_mlp_tc_shape(600, widths, sa.MAX_K_MLP, esize)

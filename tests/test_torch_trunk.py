@@ -180,3 +180,51 @@ def test_fused_resnet_against_unfused(dtype):
     with torch.no_grad():
         for a, b in zip(fused(img), plain(img)):
             np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+# ResNet-50's routed blocks at 384x384 (layer2_1..3, layer3_1..5) at the
+# serving batches, and small maps of the kinds the tests above use:
+# (B, H = W, Cin, Cw)
+TC_SHAPES = [(8, 48, 512, 128), (8, 24, 1024, 256), (32, 48, 512, 128),
+             (32, 24, 1024, 256), (1, 48, 512, 128), (1, 24, 1024, 256),
+             (2, 12, 512, 128), (2, 8, 1024, 256), (1, 1, 512, 128)]
+
+
+@pytest.mark.parametrize("B,hw,cin,cw", TC_SHAPES)
+def test_rows_per_block_covers_every_row_once(B, hw, cin, cw):
+    """The tensor-core body's row tiles (grid ceil(H / rows), tile t =
+    rows [t * rows, min((t + 1) * rows, H))) cover each output row once,
+    and the chosen tile fits the block's shared memory."""
+    rows = trunk.rows_per_block(B, hw, hw, cin, cw)
+    assert 1 <= rows <= hw
+    assert trunk.tc_smem_bytes(rows, hw, cw) <= trunk.MAX_SMEM
+    seen = np.zeros(hw, int)
+    for t in range(-(-hw // rows)):
+        seen[t * rows:min((t + 1) * rows, hw)] += 1
+    assert (seen == 1).all()
+
+
+def test_rows_per_block_fills_the_h100_at_the_main_shapes():
+    """Batch 8: 3 rows a block at layer2 (128 blocks), 2 at layer3 (96),
+    as the source note of csrc/trunk_block.cu states."""
+    assert trunk.rows_per_block(8, 48, 48, 512, 128) == 3
+    assert trunk.rows_per_block(8, 24, 24, 1024, 256) == 2
+    assert trunk.tc_smem_bytes(3, 48, 128) == 188576
+    assert trunk.tc_smem_bytes(2, 24, 256) == 161664
+
+
+def test_tc_shape_guard_names_what_it_refuses():
+    res = ResNet()
+    for name in res.fusable:                # every block the trunk routes
+        blk = getattr(res, name)
+        hw = 48 if name.startswith("layer2") else 24
+        trunk.check_tc_shape(hw, hw, blk.conv1.in_channels,
+                             blk.conv1.out_channels, blk.project)
+    with pytest.raises(ValueError, match="unprojected"):
+        trunk.check_tc_shape(24, 24, 64, 128, True)
+    with pytest.raises(ValueError, match="Cin a multiple of 64"):
+        trunk.check_tc_shape(24, 24, 96, 128, False)
+    with pytest.raises(ValueError, match="Cw of 128"):
+        trunk.check_tc_shape(24, 24, 256, 64, False)
+    with pytest.raises(ValueError, match="shared memory"):
+        trunk.check_tc_shape(200, 200, 1024, 256, False)
