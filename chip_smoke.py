@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (``pdfnet_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py             # from the root of a checkout
-    python3 chip_smoke.py --profile   # also profiles the bf16 eval and train steps
+    python3 chip_smoke.py --profile   # also profiles the bf16 steps (batch 8, 32)
 
 Phases, each of which fails the run:
 
@@ -12,11 +12,16 @@ Phases, each of which fails the run:
 3. every kernel at the shapes of its path at batch 8 (16 hands), against
    its plain PyTorch version on the same inputs: the grouping kernels bit
    for bit (identical neighbour selection, exact ties planted), the MLP
-   and bottleneck kernels within stated tolerances; kernel, plain and bound
-   times, the MLP and bottleneck kernels timed by CUDA-graph replay beside
-   a yardstick timed the same way (three cuBLAS matmuls with bias, ReLU
-   and the max; cuDNN on the folded weights), which the port never calls;
-   the train grouping ops' backward passes on the card against the CPU;
+   and bottleneck kernels within stated tolerances; the five selection
+   entry points also on the cases a threshold selection stresses
+   (identical points, ties at the k-th place, k = N up to 1024, N not a
+   multiple of 32, NaN/inf clusters larger than k, points on the radius,
+   k = 8 and 128); kernel, plain and bound times, every kernel timed by
+   CUDA-graph replay (and eagerly) beside a yardstick timed the same way
+   (d2 by broadcasting and ``torch.topk``, with the gather for the row
+   kernels; three cuBLAS matmuls with bias, ReLU and the max; cuDNN on the
+   folded weights), which the port never calls; the train grouping ops'
+   backward passes on the card against the CPU;
 4. the batched RGB-D eval step (``build_model`` + ``make_eval_step``) at the
    full width of the default ``Config`` with seeded random weights and
    jittered BatchNorm statistics, on the bench's batch layout: output shapes
@@ -106,6 +111,11 @@ SOURCES = {"sa_group_l1": ("pdfnet_tpu_torch/csrc/sa_group.cu",
                                    "pdfnet_tpu/ops/pallas_trunk.py:148"),
            "fused_bottleneck_s2": ("pdfnet_tpu_torch/csrc/trunk_block.cu",
                                    "pdfnet_tpu/ops/pallas_trunk.py:198")}
+# what the selection kernels' yardsticks compute (timed only, never called
+# by the port; no single PyTorch call makes an exact kNN selection, so
+# library_ms is null)
+YARD_KNN = "d2 by broadcasting, torch.topk"
+YARD_ROWS = YARD_KNN + ", gather, ball where"
 EVAL_KERNELS = ("sa_group_l1", "sa_group_l2", "sa_mlp_max")
 TRAIN_KERNELS = ("knn_group_xyz", "group_feat")
 SERVE_KERNELS = ("knn", "fused_bottleneck_s1")
@@ -228,6 +238,16 @@ def mlp_bound(H, S, k, C, widths, in_esize, bf16):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def selection_times(run, plain, yard, what=YARD_ROWS):
+    """(graph ms, plain ms, extra text, yardstick ms) of a selection
+    entry point: kernel and yardstick by CUDA-graph replay, the kernel
+    eagerly beside it, the plain version eagerly."""
+    ms, yard_ms = graph_ms(run), graph_ms(yard)
+    return (ms, time_ms(plain, iters=5),
+            f"; eager_ms {time_ms(run):.4f}; yardstick_ms {yard_ms:.4f} "
+            f"({what}; graph replay)", yard_ms)
+
+
 def kernel_phase(cfg, dev):
     """Every kernel at its path's shapes in float32 and bfloat16, against
     its plain version.  Returns per-kernel numbers of the calls one step of
@@ -272,10 +292,12 @@ def kernel_phase(cfg, dev):
     print(f"kernel sa_group_l1: neighbourhoods bit-identical (same "
           f"neighbours, same order); in-ball share "
           f"{(got.abs().sum(-1) > 0).float().mean().item():.3f}")
-    record("sa_group_l1", "f32", err,
-           time_ms(lambda: sa.sa_group_l1(xyz, S1, k, r1)),
-           time_ms(lambda: sa.group_plain(xyz, S1, k, r1), iters=5),
-           group_bound(H, N, 3, S1, k, 4), True)
+    ms, plain_ms, extra, yard = selection_times(
+        lambda: sa.sa_group_l1(xyz, S1, k, r1),
+        lambda: sa.group_plain(xyz, S1, k, r1),
+        lambda: topk_group(xyz, S1, k, r1))
+    record("sa_group_l1", "f32", err, ms, plain_ms,
+           group_bound(H, N, 3, S1, k, 4), True, extra, yard)
 
     # sa_group_l2: rows in the compute dtype (bf16 on the main path)
     for dt, step_case in ((torch.float32, False), (torch.bfloat16, True)):
@@ -286,11 +308,13 @@ def kernel_phase(cfg, dev):
         err = (got.float() - want.float()).abs().max().item()
         check(err == 0.0, f"sa_group_l2 [{dt}] differs from its plain "
                           f"version ({err})")
-        record("sa_group_l2", str(dt).split(".")[-1], err,
-               time_ms(lambda: sa.sa_group_l2(f, S2, k, r2)),
-               time_ms(lambda: sa.group_plain(f, S2, k, r2), iters=5),
+        ms, plain_ms, extra, yard = selection_times(
+            lambda: sa.sa_group_l2(f, S2, k, r2),
+            lambda: sa.group_plain(f, S2, k, r2),
+            lambda: topk_group(f, S2, k, r2))
+        record("sa_group_l2", str(dt).split(".")[-1], err, ms, plain_ms,
                group_bound(H, S1, f.shape[-1], S2, k, f.element_size()),
-               step_case)
+               step_case, extra, yard)
 
     # sa_mlp_max at both levels' shapes, float32 and bf16 compute; the
     # weights already in the compute dtype, so that the timed call is the
@@ -331,30 +355,12 @@ def kernel_phase(cfg, dev):
     err = max((g.double() - w.double()).abs().max().item()
               for g, w in zip(got, want))
     check(err == 0.0, f"knn_group_xyz differs from its plain version ({err})")
-    record("knn_group_xyz", "f32", err,
-           time_ms(lambda: grouping.knn_group_xyz(xyz, S1, k)),
-           time_ms(lambda: grouping.knn_group_xyz_plain(xyz, S1, k), iters=5),
-           group_bound(H, N, 3, S1, k, 4, selection=True), True)
-
-    # a non-finite cloud (what skip_nonfinite_updates guards against): NaN
-    # distances rank after +inf, so every selected row is a row of the hand
-    bad = xyz[:2].clone()
-    bad[0, 5:40] = float("nan")
-    bad[1, 7] = float("inf")
-    for name, fn, plain in (
-            ("knn_group_xyz", grouping.knn_group_xyz,
-             grouping.knn_group_xyz_plain),
-            ("sa_group_l1", lambda p, s, kk: (sa.sa_group_l1(p, s, kk, r1),),
-             lambda p, s, kk: (sa.group_plain(p, s, kk, r1),))):
-        for g, w in zip(fn(bad, S1, k), plain(bad, S1, k)):
-            check(torch.equal(g.cpu().long() if not g.is_floating_point()
-                              else g.cpu().nan_to_num(7.0),
-                              w.cpu().long() if not w.is_floating_point()
-                              else w.cpu().nan_to_num(7.0)),
-                  f"{name} differs from its plain version on a cloud with "
-                  f"non-finite points")
-    print("kernel knn_group_xyz, sa_group_l1: a cloud with NaN and inf "
-          "points selects as the plain version does")
+    ms, plain_ms, extra, yard = selection_times(
+        lambda: grouping.knn_group_xyz(xyz, S1, k),
+        lambda: grouping.knn_group_xyz_plain(xyz, S1, k),
+        lambda: topk_group(xyz, S1, k, None), YARD_KNN + ", gather")
+    record("knn_group_xyz", "f32", err, ms, plain_ms,
+           group_bound(H, N, 3, S1, k, 4, selection=True), True, extra, yard)
 
     # group_feat: rows in the compute dtype (bf16 on the main path)
     for dt, step_case in ((torch.float32, False), (torch.bfloat16, True)):
@@ -366,14 +372,17 @@ def kernel_phase(cfg, dev):
                   for g, w in zip(got, (rows, idx, dist)))
         check(err == 0.0, f"group_feat [{dt}] differs from its plain version "
                           f"({err})")
-        record("group_feat", str(dt).split(".")[-1], err,
-               time_ms(lambda: grouping.group_feat(f, S2, k, r2)),
-               time_ms(lambda: sa.group_select_plain(f, S2, k, r2), iters=5),
+        ms, plain_ms, extra, yard = selection_times(
+            lambda: grouping.group_feat(f, S2, k, r2),
+            lambda: sa.group_select_plain(f, S2, k, r2),
+            lambda: topk_group(f, S2, k, r2))
+        record("group_feat", str(dt).split(".")[-1], err, ms, plain_ms,
                group_bound(H, S1, f.shape[-1], S2, k, f.element_size(),
-                           selection=True), step_case)
+                           selection=True), step_case, extra, yard)
 
     grouping_backward_check(cfg, xyz, feat, gen)
     knn_check(cfg, xyz, record)
+    selection_check(gen, dev)
     trunk_check(gen, dev, record)
     return steps
 
@@ -420,6 +429,115 @@ def matmul_mlp_max(g, params):
     return h.amax(dim=2).float()
 
 
+def topk_select(ctr, pts, k):
+    """The yardstick of ``knn``: d2 by broadcasting as the plain version
+    computes it, then ``torch.topk`` (its tie order may differ)."""
+    import torch
+    diff = pts[:, None, :, :] - ctr[:, :, None, :]
+    d2 = ((diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1])
+          + diff[..., 2] * diff[..., 2])
+    return torch.topk(d2, k, dim=-1, largest=False, sorted=True)
+
+
+def topk_group(feat, S, k, r2):
+    """The yardstick of the row kernels: ``topk_select`` with the first S
+    rows as centers, the row gather, xyz minus center and (unless ``r2`` is
+    None) the ball ``where``."""
+    import torch
+    xyz = feat[..., :3].float()
+    ctr = xyz[:, :S]
+    dist, idx = topk_select(ctr, xyz, k)
+    rows = feat[torch.arange(feat.shape[0], device=feat.device)[:, None, None],
+                idx]
+    rows = torch.cat([(rows[..., :3].float() - ctr[:, :, None, :]).to(
+        feat.dtype), rows[..., 3:]], dim=-1)
+    if r2 is None:
+        return dist, idx, rows
+    own = feat[:, :S, None, :].clone()
+    own[..., :3] = 0
+    return torch.where((dist <= r2)[..., None], rows, own.expand_as(rows))
+
+
+def selection_cases(gen):
+    """The cases a threshold selection stresses, as (name, xyz (2, N, 3)
+    float32 on the CPU, S, k, r2): xyz on a 1/32 grid in [-1/8, 1/8]^3
+    (every distance exact: many keys equal the k-th, many rows exactly on
+    the radius 1/64, at offsets of 4/32)."""
+    import torch
+
+    def grid(n):
+        return torch.randint(-4, 5, (2, n, 3), generator=gen).float() / 32
+    g, g200 = grid(1024), grid(200)
+    bad, few = grid(1024), grid(96)
+    bad[:, 40:140] = float("nan")          # clusters larger than k, centers
+    bad[:, 300:400, 0] = float("inf")      # inside them too
+    few[:, 10:80] = float("nan")           # 16 finite rows: the selection
+    few[:, 80:90, 1] = float("inf")        # reaches the non-finite keys
+    r = 1.0 / 64
+    return [("identical points", torch.full((2, 1024, 3), 0.05), 512, 64, r),
+            ("grid ties, on radius", g, 512, 64, r),
+            ("grid, k = 8", g, 512, 8, r),
+            ("grid, k = 128", g, 512, 128, r),
+            ("N = 200", g200, 100, 64, r),
+            ("k = N = 200", g200, 200, 200, r),
+            ("NaN/inf clusters of 100", bad, 512, 64, r),
+            ("70 NaN + 10 inf of 96", few, 96, 64, r),
+            # 140 KB of shared memory a block: the launch opts in above 48 KB
+            ("k = N = 1024, grid ties", g, 64, 1024, r),
+            ("k = N = 1024, NaN/inf clusters", bad, 64, 1024, r)]
+
+
+def same(got, want) -> bool:
+    """Equal values, NaN equal to NaN; indices compared as int64."""
+    import torch
+    if not want.is_floating_point():
+        return torch.equal(got.long().cpu(), want.long().cpu())
+    return torch.equal(got.float().cpu().nan_to_num(7.0),
+                       want.float().cpu().nan_to_num(7.0))
+
+
+def selection_check(gen, dev) -> None:
+    """Every selection entry point against its plain version on the cases
+    of ``selection_cases``, failing on the first difference: ``knn`` with
+    the first S rows as centers and with separate centers, ``knn_group_xyz``,
+    ``sa_group_l1``, and ``sa_group_l2``/``group_feat`` on rows of 131
+    float32 and bf16 channels."""
+    import torch
+    from pdfnet_tpu_torch.ops import grouping, sa
+
+    for name, xyz, S, k, r2 in selection_cases(gen):
+        N = xyz.shape[1]
+        feat = torch.cat([xyz, torch.randn((2, N, 128), generator=gen)], -1)
+        other = torch.randint(-4, 5, (2, 333, 3), generator=gen).float() / 32
+        pts, ctr = xyz.to(dev), other.to(dev)
+        calls = [("knn", lambda: sa.knn(pts[:, :S].contiguous(), pts, k),
+                  lambda: sa.knn_select_plain(pts[:, :S], pts, k)),
+                 ("knn, 333 separate centers", lambda: sa.knn(ctr, pts, k),
+                  lambda: sa.knn_select_plain(ctr, pts, k)),
+                 ("knn_group_xyz", lambda: grouping.knn_group_xyz(pts, S, k),
+                  lambda: grouping.knn_group_xyz_plain(pts, S, k)),
+                 ("sa_group_l1", lambda: (sa.sa_group_l1(pts, S, k, r2),),
+                  lambda: (sa.group_plain(pts, S, k, r2),))]
+        for dt in (torch.float32, torch.bfloat16):
+            f = feat.to(dev, dt).contiguous()
+            calls += [(f"sa_group_l2 [{dt}]",
+                       lambda f=f: (sa.sa_group_l2(f, S, k, r2),),
+                       lambda f=f: (sa.group_plain(f, S, k, r2),)),
+                      (f"group_feat [{dt}]",
+                       lambda f=f: grouping.group_feat(f, S, k, r2),
+                       lambda f=f: (lambda g, d, i: (g, i, d))(
+                           *sa.group_select_plain(f, S, k, r2)))]
+        for call, run, plain in calls:
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            check(len(got) == len(want)
+                  and all(same(g, w) for g, w in zip(got, want)),
+                  f"{call} differs from its plain version on {name} "
+                  f"(N={N}, S={S}, k={k})")
+        print(f"kernel selection [{name}: N={N}, S={S}, k={k}]: all "
+              f"{len(calls)} entry-point calls equal their plain versions")
+
+
 def knn_bound(H, N, S, k):
     """(ms, bound_by): points and centers read once, each neighbour's int32
     index and float32 d2 written once; d2 and one compare per (center,
@@ -432,7 +550,8 @@ def knn_bound(H, N, S, k):
 def knn_check(cfg, xyz, record) -> None:
     """``knn`` (K5) at both levels' shapes, its centers the first S rows as
     the main path passes them: bit for bit against the plain version, with
-    exact ties (half the hands on a 1/256 grid) and a NaN/inf cloud."""
+    exact ties (half the hands on a 1/256 grid); NaN/inf clouds are among
+    ``selection_cases``."""
     import torch
     from pdfnet_tpu_torch.ops import sa
 
@@ -447,24 +566,14 @@ def knn_check(cfg, xyz, record) -> None:
         check(torch.equal(dist, want_d) and torch.equal(idx.long(), want_i),
               f"knn level {level} differs from its plain version")
         ties = int((want_d[..., 1:] == want_d[..., :-1]).sum())
-        record("knn", f"level {level}", 0.0,
-               time_ms(lambda: sa.knn(ctr, pts, k)),
-               time_ms(lambda: sa.knn_select_plain(ctr, pts, k), iters=5),
+        ms, plain_ms, extra, yard = selection_times(
+            lambda: sa.knn(ctr, pts, k),
+            lambda: sa.knn_select_plain(ctr, pts, k),
+            lambda: topk_select(ctr, pts, k), YARD_KNN)
+        record("knn", f"level {level}", 0.0, ms, plain_ms,
                knn_bound(H, N, S, k), True,
-               f"; bit-identical, {ties} exact ties among the neighbours")
-    bad = xyz[:2].clone()
-    bad[0, 5:40] = float("nan")
-    bad[1, 7] = float("inf")
-    ctr = bad[:, :cfg.sample_num_level1].contiguous()
-    for g, w in zip(sa.knn(ctr, bad, k), sa.knn_select_plain(ctr, bad, k)):
-        check(torch.equal(g.cpu().long() if not g.is_floating_point()
-                          else g.cpu().nan_to_num(7.0),
-                          w.cpu().long() if not w.is_floating_point()
-                          else w.cpu().nan_to_num(7.0)),
-              "knn differs from its plain version on a cloud with non-finite "
-              "points")
-    print("kernel knn: a cloud with NaN and inf points selects as the plain "
-          "version does")
+               f"; bit-identical, {ties} exact ties among the neighbours"
+               + extra, yard)
 
 
 def trunk_bound(B, hw, Cin, Cw, stride, esize, bf16):
@@ -767,6 +876,11 @@ def train_phase(args, card, cfg, dev):
               f"({card})")
         if args.profile and dt == "bfloat16":
             profile(run, f"train_bf16_b{BATCH}")
+            big = {k: torch.from_numpy(v).to(dev) for k, v in
+                   port.make_batch(c, 4 * BATCH, seed=1).items()}
+            profile(lambda: step(state, big, 0, lr, gen),
+                    f"train_bf16_b{4 * BATCH}")
+            del big
         del model, state, step
     return launches
 
@@ -1000,7 +1114,8 @@ def serve_phase(args, card, cfg, dev):
         print(f"serve step frames/s [{label}, batch {B}]: "
               f"{fps(st, b, B):.2f} ({card})")
     if args.profile:
-        profile(lambda: step(batch), f"serve_bf16_b{BATCH}")
+        for b, B in ((batch, BATCH), (big, 4 * BATCH)):
+            profile(lambda b=b: step(b), f"serve_bf16_b{B}")
     del m32, mdef, big
     return launches
 
@@ -1141,8 +1256,8 @@ def profile(fn, label: str, steps: int = 5) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile bf16 eval steps at batch 8 and 32, "
-                         "bf16 train steps and bf16 serving steps at batch 8")
+                    help="also profile the bf16 eval, train and serving "
+                         "steps at batch 8 and 32")
     args = ap.parse_args()
     try:
         import torch

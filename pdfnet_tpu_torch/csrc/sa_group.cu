@@ -19,22 +19,51 @@
 //   point (knn_pallas's contract) takes its centers as a separate (H, S, 3)
 //   operand and writes only each neighbour's index and d2.
 //
-// Design: one warp per center, eight centers per block.  The hand's xyz is
-// staged in shared memory (12 KB at N = 1024); each lane keeps N/32
-// distances in registers and k rounds of a warp-shuffle argmin over
-// (value, index) pick the neighbours, so nothing but the output touches
-// device memory.  The products and sums use __fmul_rn/__fadd_rn so the
-// compiler cannot contract them into FMAs: selection then matches the plain
-// version bit for bit, ties and points exactly on the radius included.
-// Distances are ranked by their bit patterns as unsigned integers (the
-// order of non-negative floats), with NaN above +inf, which is the order of
-// the plain version's stable sort: a non-finite cloud selects real rows
-// instead of reading past the hand.
+// Bound on the H100: the larger of ~9 float32 operations per (center,
+// point) pair for d2 and its rank, and the bytes: the rows read once, the
+// output written once (H*S*k*C elements, plus 8 bytes of index and distance
+// per neighbour on the train path).  Both levels are bound by their bytes
+// (level 1 barely: 1.9 us against 1.1 us of operations at batch 8, level 2
+// by its 34 MB of bf16 rows).  What sets the time is the selection's
+// instruction issue at level 1, and at level 2 the selection and the row
+// write, which do not overlap: every block of the grid is resident at once,
+// so all of them select, then all of them write.
 //
-// Bound on the H100: the output write (H*S*k*C elements, plus 8 bytes of
-// index and distance per neighbour on the train path) against ~9 float32
-// operations per (center, point) pair; at the main path's shapes the bytes
-// dominate, and the k rounds of shuffles, not either bound, set the time.
+// Design: one warp per center, kWarps = 8 centers per block, the hand's xyz
+// staged once per block in shared memory.  The TPU kernel's k rounds of a
+// masked argmin over the whole row (a fit for a vector unit holding a
+// (128, N) tile) become, per center, work on each (center, point) pair a
+// fixed number of times, in four phases:
+//   1. keys: each lane computes N/32 distances into registers; a distance is
+//      ranked by its bit pattern as an unsigned integer (the order of
+//      non-negative floats), NaN canonicalised above +inf and the slots past
+//      the hand above everything (the plain version's stable-sort order).
+//      __fmul_rn/__fadd_rn keep the compiler from contracting into FMAs, so
+//      d2 is bit-identical to the plain version's.
+//   2. threshold: the k-th smallest key T by binary search on the key value,
+//      one warp-wide count (__reduce_add_sync) of keys <= mid per pass, the
+//      interval first narrowed by the lanes' order statistics (for k <= 64:
+//      T lies between the smallest and the largest of the lanes' m-th
+//      smallest keys, m = ceil(k/32)), so the passes only span the bits
+//      in which candidate thresholds differ.
+//   3. compaction: every key < T and the first k - count(< T) keys == T in
+//      index order (a ballot and a prefix popcount per register), written as
+//      64-bit (key << 32 | index) composites to a per-warp buffer in shared
+//      memory.  The composite is unique, so ranking the k survivors by it
+//      (each lane counts the smaller survivors of its own) gives exactly the
+//      plain version's stable order, ties at the k-th place, points on the
+//      radius and NaN/inf clouds included.
+//   4. output, after a block barrier and never interleaved with selection:
+//      the block's centers are consecutive, so its outputs are one flat
+//      range of the (H, S, k[, C]) tensors.  Index and distance are two
+//      coalesced streams over it.  Rows of C >= 32 channels (level 2) are
+//      copied a row per warp, lanes over the channels, four rows loaded
+//      before any is stored; narrow rows (C = 3) are written by all the
+//      block's threads in element order as 16-byte vector stores (scalar at
+//      the unaligned head and tail).
+// Shared memory grows with k (two (8, k) arrays of 8-byte composites): above
+// 48 KB (k > 288 at N = 1024) the launch opts in, up to 140 KB at
+// k = N = 1024.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -43,11 +72,12 @@
 
 namespace {
 
-constexpr int kWarps = 8;        // centers per block
-constexpr int kPerLane = 32;     // distances per lane: N <= 1024
-constexpr int kMaxPoints = 32 * kPerLane;
+constexpr int kWarps = 8;                   // centers (warps) per block
+constexpr int kMaxPoints = 1024;
+constexpr int kSmemDefault = 48 * 1024;     // above it only by opting in
+constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kNaNKey = 0x7fc00000u;   // canonical NaN, above +inf
-constexpr unsigned kTaken = 0xffffffffu;    // selected, or past the hand
+constexpr unsigned kPad = 0xffffffffu;      // past the hand: never selected
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -62,18 +92,179 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
+// Phases 1-3 for one center: writes its k neighbours' (key << 32 | index)
+// in ascending order to sorted[0, K).  PL keys per lane (N <= 32 * PL).
+template <int PL>
+__device__ __forceinline__ void select_center(
+    const float* __restrict__ sxyz, float cx, float cy, float cz, int N,
+    int K, unsigned long long* __restrict__ cand,
+    unsigned long long* __restrict__ sorted) {
+  const int lane = threadIdx.x & 31;
+  unsigned key[PL];
+  unsigned m1 = kPad, m2 = kPad;   // the lane's smallest and second smallest
+#pragma unroll
+  for (int j = 0; j < PL; ++j) {
+    const int n = j * 32 + lane;
+    unsigned a = kPad;
+    if (n < N) {
+      const float dx = __fsub_rn(sxyz[3 * n + 0], cx);
+      const float dy = __fsub_rn(sxyz[3 * n + 1], cy);
+      const float dz = __fsub_rn(sxyz[3 * n + 2], cz);
+      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                                __fmul_rn(dz, dz));
+      a = d != d ? kNaNKey : __float_as_uint(d);
+    }
+    key[j] = a;
+    m2 = min(m2, max(m1, a));
+    m1 = min(m1, a);
+  }
+
+  // Bounds of T.  With m = ceil(K/32): every lane holds at least m keys <=
+  // the largest lane's m-th smallest (so count(<= hi) >= 32m >= K), and at
+  // most m - 1 keys < the smallest lane's m-th smallest (so count(< lo) <=
+  // 32(m - 1) < K).  Every real key is <= kNaNKey.
+  unsigned lo, hi;
+  if (K <= 32) {
+    lo = __reduce_min_sync(kFull, m1);
+    hi = __reduce_max_sync(kFull, m1);
+  } else if (K <= 64) {
+    lo = __reduce_min_sync(kFull, m2);
+    hi = __reduce_max_sync(kFull, m2);
+  } else {
+    lo = __reduce_min_sync(kFull, m1);
+    hi = kNaNKey;
+  }
+  hi = min(hi, kNaNKey);
+
+  // the smallest T with count(key <= T) >= K
+  while (lo < hi) {
+    const unsigned mid = lo + ((hi - lo) >> 1);
+    unsigned c = 0;
+#pragma unroll
+    for (int j = 0; j < PL; ++j) c += key[j] <= mid ? 1u : 0u;
+    if (__reduce_add_sync(kFull, c) >= static_cast<unsigned>(K)) {
+      hi = mid;
+    } else {
+      lo = mid + 1;
+    }
+  }
+  const unsigned T = lo;
+  unsigned less = 0;
+#pragma unroll
+  for (int j = 0; j < PL; ++j) less += key[j] < T ? 1u : 0u;
+  const unsigned take = K - __reduce_add_sync(kFull, less);   // >= 1
+
+  // compaction in index order n = j * 32 + lane
+  const unsigned below = (1u << lane) - 1u;
+  unsigned eq_seen = 0, pos = 0;
+#pragma unroll
+  for (int j = 0; j < PL; ++j) {
+    const unsigned a = key[j];
+    const bool eq = a == T;
+    const unsigned beq = __ballot_sync(kFull, eq);
+    const bool sel = a < T || (eq && eq_seen + __popc(beq & below) < take);
+    const unsigned bsel = __ballot_sync(kFull, sel);
+    if (sel) {
+      cand[pos + __popc(bsel & below)] =
+          (static_cast<unsigned long long>(a) << 32) |
+          static_cast<unsigned>(j * 32 + lane);
+    }
+    pos += __popc(bsel);
+    eq_seen += __popc(beq);
+  }
+  __syncwarp();
+
+  // rank of each survivor among the K unique composites; two per lane and
+  // pass, every lane reading the same composite (a broadcast)
+  for (int base = 0; base < K; base += 64) {
+    const int i0 = base + lane, i1 = i0 + 32;
+    const unsigned long long c0 = i0 < K ? cand[i0] : ~0ull;
+    const unsigned long long c1 = i1 < K ? cand[i1] : ~0ull;
+    int r0 = 0, r1 = 0;
+    for (int i = 0; i < K; ++i) {
+      const unsigned long long c = cand[i];
+      r0 += c < c0;
+      r1 += c < c1;
+    }
+    if (i0 < K) sorted[r0] = c0;
+    if (i1 < K) sorted[r1] = c1;
+  }
+}
+
+// Rows of C >= 32 channels (level 2): warp w copies rows q = w, w + kWarps,
+// ... of the block, its lanes over the channels, so that the out-of-ball
+// choice is one per row and both the loads and the stores of a warp are
+// contiguous.  Four rows of up to 160 channels are loaded before any is
+// stored, to keep enough loads in flight at level 2's few blocks per SM.
+template <typename T, bool kBall>
+__device__ __forceinline__ void write_rows(
+    const T* __restrict__ fh, const float* __restrict__ sxyz,
+    const unsigned long long* __restrict__ sorted, T* __restrict__ ob,
+    int s0, int rows, int C, int K, float r2) {
+  constexpr int kR = 4, kT = 5;
+  const int lane = threadIdx.x & 31;
+  for (int q0 = threadIdx.x >> 5; q0 < rows; q0 += kR * kWarps) {
+    const T* src[kR];
+    T* dst[kR];
+    int sq[kR];
+    bool in[kR], ok[kR];
+#pragma unroll
+    for (int u = 0; u < kR; ++u) {
+      const int q = q0 + u * kWarps;
+      ok[u] = q < rows;
+      const unsigned long long c = ok[u] ? sorted[q] : 0ull;
+      sq[u] = s0 + (ok[u] ? q / K : 0);
+      in[u] = !kBall || __uint_as_float(static_cast<unsigned>(c >> 32)) <= r2;
+      src[u] = fh + static_cast<int64_t>(
+                        in[u] ? static_cast<int>(c & 0xffffffffu) : sq[u]) * C;
+      dst[u] = ob + static_cast<int64_t>(q) * C;
+    }
+    for (int c0 = 0; c0 < C; c0 += 32 * kT) {
+      T v[kR][kT];
+#pragma unroll
+      for (int u = 0; u < kR; ++u) {
+#pragma unroll
+        for (int t = 0; t < kT; ++t) {
+          const int ch = c0 + 32 * t + lane;
+          if (ok[u] && ch < C) v[u][t] = src[u][ch];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kR; ++u) {
+#pragma unroll
+        for (int t = 0; t < kT; ++t) {
+          const int ch = c0 + 32 * t + lane;
+          if (!ok[u] || ch >= C) continue;
+          T x = v[u][t];
+          if (ch < 3) {
+            x = in[u] ? from_f32<T>(__fsub_rn(to_f32(x), sxyz[3 * sq[u] + ch]))
+                      : from_f32<T>(0.0f);
+          }
+          dst[u][ch] = x;
+        }
+      }
+    }
+  }
+}
+
 // kSel: also write idx (int32) and d2 (float32) per neighbour.
 // kBall: substitute out-of-ball neighbours (else always row - center).
 // kRows: write the grouped rows (else only idx and d2).
 // centers: (H, S, 3) float32, or nullptr for the first S rows of feat.
-template <typename T, bool kSel, bool kBall, bool kRows = true>
+// Shared memory: two (kWarps, K) arrays of composites, then the (N, 3) xyz.
+template <typename T, bool kSel, bool kBall, bool kRows, int PL>
 __global__ void __launch_bounds__(kWarps * 32)
 sa_group_kernel(const T* __restrict__ feat, T* __restrict__ out,
                 int32_t* __restrict__ idx_out, float* __restrict__ dist_out,
                 const float* __restrict__ centers, int N, int C, int S, int K,
                 float r2) {
-  extern __shared__ float sxyz[];  // (N, 3) float32
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned long long* cand = reinterpret_cast<unsigned long long*>(smem);
+  unsigned long long* sorted = cand + kWarps * K;
+  float* sxyz = reinterpret_cast<float*>(sorted + kWarps * K);
+
   const int h = blockIdx.y;
+  const int s0 = blockIdx.x * kWarps;
   const T* fh = feat + static_cast<int64_t>(h) * N * C;
   for (int i = threadIdx.x; i < N; i += blockDim.x) {
     const T* row = fh + static_cast<int64_t>(i) * C;
@@ -83,83 +274,96 @@ sa_group_kernel(const T* __restrict__ feat, T* __restrict__ out,
   }
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int s = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (s >= S) return;
-  const float* ctr = centers != nullptr
-                         ? centers + (static_cast<int64_t>(h) * S + s) * 3
-                         : sxyz + 3 * s;
-  const float cx = ctr[0];
-  const float cy = ctr[1];
-  const float cz = ctr[2];
+  const int w = threadIdx.x >> 5;
+  const int s = s0 + w;
+  if (s < S) {
+    const float* ctr = centers != nullptr
+                           ? centers + (static_cast<int64_t>(h) * S + s) * 3
+                           : sxyz + 3 * s;
+    select_center<PL>(sxyz, ctr[0], ctr[1], ctr[2], N, K, cand + w * K,
+                      sorted + w * K);
+  }
+  __syncthreads();
 
-  unsigned key[kPerLane];
-#pragma unroll
-  for (int j = 0; j < kPerLane; ++j) {
-    const int n = j * 32 + lane;
-    if (n < N) {
-      const float dx = __fsub_rn(sxyz[3 * n + 0], cx);
-      const float dy = __fsub_rn(sxyz[3 * n + 1], cy);
-      const float dz = __fsub_rn(sxyz[3 * n + 2], cz);
-      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                __fmul_rn(dz, dz));
-      key[j] = d != d ? kNaNKey : __float_as_uint(d);
-    } else {
-      key[j] = kTaken;
+  // the block's centers s0 .. s0 + nw - 1 own rows row0 .. row0 + nw*K - 1
+  const int nw = min(kWarps, S - s0);
+  const int64_t row0 = (static_cast<int64_t>(h) * S + s0) * K;
+  if (kSel) {
+    for (int i = threadIdx.x; i < nw * K; i += blockDim.x) {
+      const unsigned long long c = sorted[i];
+      idx_out[row0 + i] = static_cast<int32_t>(c & 0xffffffffu);
+      dist_out[row0 + i] = __uint_as_float(static_cast<unsigned>(c >> 32));
     }
   }
+  if (!kRows) return;
+  T* ob = out + row0 * C;
+  if (C >= 32) {
+    write_rows<T, kBall>(fh, sxyz, sorted, ob, s0, nw * K, C, K, r2);
+    return;
+  }
 
-  const T* crow = fh + static_cast<int64_t>(s) * C;
-  const int64_t row0 = (static_cast<int64_t>(h) * S + s) * K;
-  T* orow = kRows ? out + row0 * C : nullptr;
-  for (int r = 0; r < K; ++r) {
-    // lane-local argmin; ascending j keeps the lowest index on ties
-    unsigned best = kTaken;
-    int bi = 0x7fffffff;
+  // narrow rows (C = 3 at level 1): flat over the block's elements
+  // element (q = w*K + r, ch) of the block's rows
+  auto value = [&](int q, int wq, int ch) -> T {
+    const unsigned long long c = sorted[q];
+    const int sq = s0 + wq;
+    if (!kBall || __uint_as_float(static_cast<unsigned>(c >> 32)) <= r2) {
+      const T v = fh[static_cast<int64_t>(c & 0xffffffffu) * C + ch];
+      return ch < 3 ? from_f32<T>(__fsub_rn(to_f32(v), sxyz[3 * sq + ch]))
+                    : v;
+    }
+    return ch < 3 ? from_f32<T>(0.0f) : fh[static_cast<int64_t>(sq) * C + ch];
+  };
+  constexpr int V = 16 / sizeof(T);
+  const int total = nw * K * C;
+  const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(ob) & 15);
+  const int head = min(total, ((16 - mis) & 15) / static_cast<int>(sizeof(T)));
+  const int nvec = (total - head) / V;
+  for (int e = threadIdx.x; e < head; e += blockDim.x) {
+    const int q = e / C;
+    ob[e] = value(q, q / K, e - q * C);
+  }
+  for (int v = threadIdx.x; v < nvec; v += blockDim.x) {
+    const int e = head + v * V;
+    int q = e / C;
+    int ch = e - q * C;
+    int wq = q / K;
+    int r = q - wq * K;
+    alignas(16) T vals[V];
 #pragma unroll
-    for (int j = 0; j < kPerLane; ++j) {
-      if (key[j] < best) {
-        best = key[j];
-        bi = j * 32 + lane;
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const unsigned ob = __shfl_xor_sync(0xffffffffu, best, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-      if (ob < best || (ob == best && oi < bi)) {
-        best = ob;
-        bi = oi;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kPerLane; ++j) {
-      if (j * 32 + lane == bi) key[j] = kTaken;
-    }
-
-    const float d = __uint_as_float(best);
-    if (kSel && lane == 0) {
-      idx_out[row0 + r] = bi;
-      dist_out[row0 + r] = d;
-    }
-    if (!kRows) continue;
-    T* o = orow + static_cast<int64_t>(r) * C;
-    if (!kBall || d <= r2) {
-      const T* src = fh + static_cast<int64_t>(bi) * C;
-      for (int ch = lane; ch < C; ch += 32) {
-        if (ch < 3) {
-          const float c = ch == 0 ? cx : (ch == 1 ? cy : cz);
-          o[ch] = from_f32<T>(__fsub_rn(to_f32(src[ch]), c));
-        } else {
-          o[ch] = src[ch];
+    for (int i = 0; i < V; ++i) {
+      vals[i] = value(q, wq, ch);
+      if (++ch == C) {
+        ch = 0;
+        ++q;
+        if (++r == K) {
+          r = 0;
+          ++wq;
         }
       }
-    } else {
-      for (int ch = lane; ch < C; ch += 32) {
-        o[ch] = ch < 3 ? from_f32<T>(0.0f) : crow[ch];
-      }
     }
+    *reinterpret_cast<uint4*>(ob + e) = *reinterpret_cast<const uint4*>(vals);
   }
+  for (int e = head + nvec * V + threadIdx.x; e < total; e += blockDim.x) {
+    const int q = e / C;
+    ob[e] = value(q, q / K, e - q * C);
+  }
+}
+
+template <typename T, bool kSel, bool kBall, bool kRows, int PL>
+int launch_pl(dim3 grid, size_t smem, cudaStream_t stream,
+              const T* feat, T* out, int32_t* idx, float* dist,
+              const float* centers, int N, int C, int S, int K, float r2) {
+  auto kernel = sa_group_kernel<T, kSel, kBall, kRows, PL>;
+  if (smem > static_cast<size_t>(kSmemDefault)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<grid, kWarps * 32, smem, stream>>>(feat, out, idx, dist, centers,
+                                              N, C, S, K, r2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, bool kSel, bool kBall, bool kRows = true>
@@ -167,18 +371,29 @@ int launch(const void* feat, void* out, void* idx, void* dist, int H, int N,
            int C, int S, int K, float r2, void* stream,
            const void* centers = nullptr) {
   // without separate centers, the centers are the first S rows
-  if (H < 1 || N < 1 || N > kMaxPoints || C < 3 || S < 1 ||
+  if (H < 1 || H > 65535 || N < 1 || N > kMaxPoints || C < 3 || S < 1 ||
       (centers == nullptr && S > N) || K < 1 || K > N) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  dim3 grid((S + kWarps - 1) / kWarps, H);
-  const size_t smem = static_cast<size_t>(N) * 3 * sizeof(float);
-  sa_group_kernel<T, kSel, kBall, kRows>
-      <<<grid, kWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(feat), static_cast<T*>(out),
-          static_cast<int32_t*>(idx), static_cast<float*>(dist),
-          static_cast<const float*>(centers), N, C, S, K, r2);
-  return static_cast<int>(cudaGetLastError());
+  const dim3 grid((S + kWarps - 1) / kWarps, H);
+  const size_t smem = static_cast<size_t>(kWarps) * K * 16 +
+                      static_cast<size_t>(N) * 3 * sizeof(float);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* f = static_cast<const T*>(feat);
+  T* o = static_cast<T*>(out);
+  int32_t* i = static_cast<int32_t*>(idx);
+  float* d = static_cast<float*>(dist);
+  const float* c = static_cast<const float*>(centers);
+  if (N <= 256) {
+    return launch_pl<T, kSel, kBall, kRows, 8>(grid, smem, st, f, o, i, d,
+                                               c, N, C, S, K, r2);
+  }
+  if (N <= 512) {
+    return launch_pl<T, kSel, kBall, kRows, 16>(grid, smem, st, f, o, i, d,
+                                                c, N, C, S, K, r2);
+  }
+  return launch_pl<T, kSel, kBall, kRows, 32>(grid, smem, st, f, o, i, d,
+                                              c, N, C, S, K, r2);
 }
 
 }  // namespace

@@ -26,7 +26,8 @@ _CONSTS: Dict[str, mano.ManoConsts] = {}
 
 def _consts(side: str) -> mano.ManoConsts:
     if side not in _CONSTS:
-        _CONSTS[side] = mano.load_mano_consts(side)
+        # ground truth is built with numpy on the host
+        _CONSTS[side] = mano.load_mano_consts(side, device="cpu")
     return _CONSTS[side]
 
 

@@ -31,9 +31,10 @@ class ManoConsts(NamedTuple):
 
 
 def load_mano_consts(side: str, fix_shape: bool = True,
-                     device="cpu") -> ManoConsts:
-    """MANO constants of one hand on ``device``; ``fix_shape`` applies the
-    left-hand shapedirs sign fix (``assets.load_mano``)."""
+                     device="cuda") -> ManoConsts:
+    """MANO constants of one hand on ``device`` (the card unless the caller
+    asks for the CPU, as every entry point of the port); ``fix_shape``
+    applies the left-hand shapedirs sign fix (``assets.load_mano``)."""
     m = assets.load_mano(side, fix_shape=fix_shape)
     t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
     return ManoConsts(

@@ -102,3 +102,16 @@ def test_model_honours_knn_method_and_fused_trunk(knn_method):
     model = HandNet(cfg)
     assert model.encoder.pointnet.knn_method == knn_method
     assert model.encoder.resnet.fused_eval
+
+
+@pytest.mark.parametrize("entry", ["pdfnet_tpu_torch.models.handnet:build_model",
+                                   "pdfnet_tpu_torch.train.loss:load_loss_consts",
+                                   "pdfnet_tpu_torch.mano.layer:load_mano_consts"])
+def test_entry_points_default_to_the_card(entry):
+    """Every public loader or model constructor that takes a device runs on
+    the card unless the caller asks for the CPU."""
+    import importlib
+    import inspect
+    module, name = entry.split(":")
+    fn = getattr(importlib.import_module(module), name)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -193,3 +193,33 @@ def test_pointnet_plus_generic_matches_jax(method):
         np.testing.assert_array_equal(b, a, err_msg="neighbour sets differ")
     assert got.shape == (B, 2, 1024)
     np.testing.assert_allclose(got.numpy(), ref, **TOL)
+
+
+@pytest.mark.parametrize("kind", ["identical", "coarse", "n200"])
+def test_knn_separate_centers_match_pallas_on_hard_clouds(kind):
+    """``knn`` with its centers as an operand of their own (S = 128, the TPU
+    kernel's tile) against ``knn_pallas`` in interpret mode on the cases a
+    threshold selection stresses: every point and center the same (all
+    distances 0), a 1/8 grid with more keys equal to the k-th than places
+    left, and N = 200 points (not a multiple of 32)."""
+    rng = np.random.RandomState(30)
+    n = 200 if kind == "n200" else N
+    if kind == "identical":
+        pts = np.full((H, n, 3), 0.03, np.float32)
+        ctr = np.full((H, S, 3), 0.03, np.float32)
+    else:
+        step, half = (1 / 8, 2) if kind == "coarse" else (1 / 32, 4)
+        pts = (rng.randint(-half, half + 1, (H, n, 3)) * step).astype(
+            np.float32)
+        ctr = (rng.randint(-half, half + 1, (H, S, 3)) * step).astype(
+            np.float32)
+    for k in (1, K):
+        dist_j, idx_j = knn_pallas(jnp.asarray(ctr), jnp.asarray(pts), k=k,
+                                   interpret=True)
+        dist_t, idx_t = sa.knn(torch.from_numpy(ctr), torch.from_numpy(pts),
+                               k)
+        np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))
+        np.testing.assert_array_equal(dist_t.numpy(), np.asarray(dist_j))
+    if kind == "coarse":
+        d = sa.knn(torch.from_numpy(ctr), torch.from_numpy(pts), K + 1)[0]
+        assert (d[..., K - 1] == d[..., K]).any(), "no k-th-place ties"

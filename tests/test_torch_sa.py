@@ -268,3 +268,133 @@ def test_mlp_tc_shape_guard(level):
     assert sa.mlp_tc_smem_bytes(C, widths, sa.MAX_K_MLP, esize) <= sa.MAX_SMEM
     with pytest.raises(ValueError, match="shared memory"):
         sa.check_mlp_tc_shape(600, widths, sa.MAX_K_MLP, esize)
+
+
+# ---- the cases a threshold selection stresses ------------------------------
+
+def _cloud(kind):
+    """(H, N, 3) float32 clouds for the selection's hard cases, S = 128
+    centers (the TPU kernel's tile) being the first rows:
+
+    - ``identical``: every point the same, so every distance is 0 and the
+      k nearest are the first k rows;
+    - ``coarse``: a 1/8 grid of 125 cells under 256 points, so many keys
+      equal the k-th and more of them than places left (k-th-place ties);
+    - ``n200``: N = 200 points on the 1/32 grid, not a multiple of 32;
+    - ``inf_cluster``: 100 rows (more than k) at x = 1e30, so a finite
+      center sees them at d2 = +inf and the centers among them (rows
+      100..127) see each other at finite d2 and the rest at +inf."""
+    rng = np.random.RandomState({"identical": 20, "coarse": 21, "n200": 22,
+                                 "inf_cluster": 23}[kind])
+    if kind == "identical":
+        return np.tile(np.float32([[[0.05, -0.02, 0.03]]]), (H, N, 1))
+    if kind == "coarse":
+        return (rng.randint(-2, 3, (H, N, 3)) / 8.0).astype(np.float32)
+    x = (rng.randint(-4, 5, (H, 200 if kind == "n200" else N, 3))
+         / 32.0).astype(np.float32)
+    if kind == "inf_cluster":
+        x[:, 100:200, 0] = 1e30
+    return x
+
+
+CLOUDS = ("identical", "coarse", "n200", "inf_cluster")
+
+
+@pytest.mark.parametrize("k", [1, K])
+@pytest.mark.parametrize("kind", CLOUDS)
+def test_knn_selection_matches_pallas_on_hard_clouds(kind, k):
+    """The plain selection against ``knn_pallas`` in interpret mode, index
+    and distance bit for bit; the coarse grid has rows whose k-th distance
+    recurs beyond the k-th place."""
+    pts = _cloud(kind)
+    dist_j, idx_j = knn_pallas(jnp.asarray(pts[:, :S]), jnp.asarray(pts),
+                               k=k, interpret=True)
+    dist_t, idx_t = sa.knn_plain(torch.from_numpy(pts), S, k)
+    np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))
+    np.testing.assert_array_equal(dist_t.numpy(), np.asarray(dist_j))
+    if kind == "coarse":
+        d = sa.knn_plain(torch.from_numpy(pts), S, k + 1)[0].numpy()
+        assert (d[..., k - 1] == d[..., k]).any(), "no k-th-place ties"
+
+
+@pytest.mark.parametrize("kind", CLOUDS)
+def test_grouping_matches_pallas_on_hard_clouds(kind):
+    """Level-1 grouping (zeros out of the ball) and level-2 rows of 131
+    float32 and bf16 channels against ``group_feat_pallas`` bit for bit at
+    the radius 1/64, on which the grid clouds put many points; level-1 set
+    abstraction against ``sa_level1_pallas`` within ``TOL``."""
+    pts = _cloud(kind)
+    r2 = 1.0 / 64
+    g_j, _, _ = group_feat_pallas(jnp.asarray(pts), k=K, num_centers=S,
+                                  radius2=r2, interpret=True)
+    np.testing.assert_array_equal(
+        sa.sa_group_l1(torch.from_numpy(pts), S, K, r2).numpy(),
+        np.asarray(g_j))
+    rng = np.random.RandomState(24)
+    feat = np.concatenate([pts, rng.randn(*pts.shape[:2], 128)], -1)
+    for dtype in ("float32", "bfloat16"):
+        fj = jnp.asarray(feat).astype(dtype)
+        g_j, _, _ = group_feat_pallas(fj, k=K, num_centers=S, radius2=r2,
+                                      interpret=True)
+        g_t = sa.sa_group_l2(torch.from_numpy(feat).to(getattr(torch, dtype)),
+                             S, K, r2)
+        np.testing.assert_array_equal(g_t.float().numpy(),
+                                      np.asarray(g_j.astype(jnp.float32)))
+    folded = _folded(sa.MLP_WIDTHS[0], 3, 25)
+    ref = sa_level1_pallas(jnp.asarray(pts), folded, k=K, num_centers=S,
+                           radius2=r2, interpret=True)
+    got = sa.sa_level1(torch.from_numpy(pts), _torch_folded(folded), K, S,
+                       r2, torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def _stable_sort_select(pts, k, s=S):
+    """numpy reference of the port's selection contract, the first s rows
+    the centers: float32 d2 in the direct form, a stable ascending sort (NaN
+    after +inf, equal keys in index order) -> (dist, idx) of the first k."""
+    with np.errstate(invalid="ignore"):
+        diff = pts[:, None, :, :] - pts[:, :s, None, :]
+        d2 = ((diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1])
+              + diff[..., 2] * diff[..., 2])
+    idx = np.argsort(d2, axis=-1, kind="stable")[..., :k]
+    return np.take_along_axis(d2, idx, -1), idx
+
+
+@pytest.mark.parametrize("n_finite", [N - 200, 16])
+def test_knn_selection_on_non_finite_clouds(n_finite):
+    """NaN and inf clusters larger than k, centers inside them; with 16
+    finite rows the selection of a finite center reaches into the +inf and
+    NaN keys.  The TPU kernel defines no order there (one NaN distance in a
+    row makes its min NaN, and it emits index N for every place; past the
+    finite keys it repeats indices), so the port's contract, NaN after
+    +inf and no index twice, is held to numpy's stable argsort."""
+    rng = np.random.RandomState(26)
+    pts = (rng.randint(-4, 5, (H, N, 3)) / 32.0).astype(np.float32)
+    n_bad = N - n_finite
+    pts[:, 10:10 + n_bad // 2] = np.nan
+    pts[:, 10 + n_bad // 2:10 + n_bad, 1] = np.inf
+    for k in (K, 64):
+        want_d, want_i = _stable_sort_select(pts, k)
+        dist, idx = sa.knn_plain(torch.from_numpy(pts), S, k)
+        np.testing.assert_array_equal(idx.numpy(), want_i)
+        np.testing.assert_array_equal(dist.numpy(), want_d)
+        assert (np.sort(idx.numpy(), -1)[..., 1:]
+                != np.sort(idx.numpy(), -1)[..., :-1]).all()
+
+
+@pytest.mark.parametrize("non_finite", [False, True])
+def test_knn_selection_of_the_whole_cloud(non_finite):
+    """k = N = 1024, the widest selection the kernel takes (its shared
+    memory opts in above 48 KB there), 64 centers on the 1/32 grid, with
+    and without NaN and inf clusters of 100 rows: every point once, in the
+    stable order of numpy's argsort, held to it bit for bit."""
+    rng = np.random.RandomState(27)
+    pts = (rng.randint(-4, 5, (H, 1024, 3)) / 32.0).astype(np.float32)
+    if non_finite:
+        pts[:, 40:140] = np.nan
+        pts[:, 300:400, 0] = np.inf
+    want_d, want_i = _stable_sort_select(pts, 1024, 64)
+    dist, idx = sa.knn_plain(torch.from_numpy(pts), 64, 1024)
+    np.testing.assert_array_equal(idx.numpy(), want_i)
+    np.testing.assert_array_equal(dist.numpy(), want_d)
+    assert (np.sort(idx.numpy(), -1) == np.arange(1024)).all()

@@ -68,7 +68,7 @@ def _t(a):
 
 @pytest.mark.parametrize("side", ["left", "right"])
 def test_mano_axis_matches_golden(golden, side):
-    v, j = mano.mano_forward(mano.load_mano_consts(side),
+    v, j = mano.mano_forward(mano.load_mano_consts(side, device="cpu"),
                              _t(golden[f"{side}_root"]),
                              _t(golden[f"{side}_pose"]),
                              _t(golden[f"{side}_shape"]),
@@ -79,7 +79,7 @@ def test_mano_axis_matches_golden(golden, side):
 
 @pytest.mark.parametrize("side", ["left", "right"])
 def test_mano_pca_matches_golden(golden, side):
-    v, j = mano.mano_forward(mano.load_mano_consts(side),
+    v, j = mano.mano_forward(mano.load_mano_consts(side, device="cpu"),
                              _t(golden[f"{side}_rootmat"]),
                              _t(golden[f"{side}_pca"]),
                              _t(golden[f"{side}_shape"]),
@@ -101,7 +101,7 @@ def test_mano_matches_jax(side, fix_shape):
     shape = rng.uniform(-2, 2, (3, 10)).astype(np.float32)
     trans = rng.uniform(-0.1, 0.1, (3, 3)).astype(np.float32)
     cj = jax_mano.load_mano_consts(side, fix_shape=fix_shape)
-    ct = mano.load_mano_consts(side, fix_shape=fix_shape)
+    ct = mano.load_mano_consts(side, fix_shape=fix_shape, device="cpu")
     np.testing.assert_array_equal(ct.shapedirs.numpy(),
                                   np.asarray(cj.shapedirs, np.float32))
     vj, jj = jax_mano.mano_forward(cj, root, pose, shape, trans=trans,
@@ -123,7 +123,8 @@ def test_rotations_match_jax():
         mano.rodrigues(_t(axis[:, :3])).numpy(),
         np.asarray(jax_mano.rodrigues(jnp.asarray(axis[:, :3]))), atol=1e-6)
     np.testing.assert_allclose(
-        mano.pca_to_axis(mano.load_mano_consts("right"), _t(pca)).numpy(),
+        mano.pca_to_axis(mano.load_mano_consts("right", device="cpu"),
+                         _t(pca)).numpy(),
         np.asarray(jax_mano.pca_to_axis(jax_mano.load_mano_consts("right"),
                                         jnp.asarray(pca))), atol=1e-5)
 
