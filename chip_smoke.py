@@ -16,7 +16,10 @@ Phases, each of which fails the run:
    entry points also on the cases a threshold selection stresses
    (identical points, ties at the k-th place, k = N up to 1024, N not a
    multiple of 32, NaN/inf clusters larger than k, points on the radius,
-   k = 8 and 128); kernel, plain and bound times, every kernel timed by
+   k = 8 and 128) and, at 16 hands, on clouds wider than 1024 points
+   (N = 1500, 2048, 2050 and 4096, k = 100 and 128, k = N = 2048, ties and
+   NaN/inf clusters), ``sa_mlp_max`` at k = 128 and 256 (k in chunks of
+   64); kernel, plain and bound times, every kernel timed by
    CUDA-graph replay (and eagerly) beside a yardstick timed the same way
    (d2 by broadcasting and ``torch.topk``, with the gather for the row
    kernels; three cuBLAS matmuls with bias, ReLU and the max; cuDNN on the
@@ -27,7 +30,8 @@ Phases, each of which fails the run:
    jittered BatchNorm statistics, on the bench's batch layout: output shapes
    and finiteness, the kernels' launch counts in one step, the float32 step
    on the card against the same model on the CPU (plain versions) at batch
-   1, and frames/s in bfloat16 and float32;
+   1, and frames/s in bfloat16 and float32; and one float32 eval step at
+   ``sample_num=2048``, ``knn_k=128`` on the card against the CPU;
 5. the train step (``create_train_state`` + ``make_train_step``: forward in
    training mode, the loss, backward, Adam) at the full width of the default
    ``Config`` on a synthetic batch of 8 from the port's ``make_batch``: the
@@ -42,7 +46,15 @@ Phases, each of which fails the run:
    finiteness, the kernels' launch counts in one step, a float32 step on the
    card against the CPU at batch 1 with deterministic sampling, and frames/s
    in bfloat16 and float32 at batch 8 and 32 (and the default serving
-   config's bfloat16 rate at batch 8 beside them).
+   config's bfloat16 rate at batch 8 beside them);
+7. the train/eval CLI (``pdfnet_tpu_torch.cli.main``) in process at the
+   default ``Config`` on an H2O-format tree it writes under ``chiprun_out/``
+   (1280x720 frames, 24 train and 10 test records): ``--mode train`` for 3
+   steps with an eval and a checkpoint, then ``--mode test`` from that
+   checkpoint: the score files, the kernels' launches per train step and
+   eval batch, the checkpoint round trip bit for bit, a float32 test-mode
+   evaluation on the card against the CPU, and the train step, data wait
+   and eval rate through the loader.
 
 TF32 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``), so every float32 number is true
@@ -348,6 +360,8 @@ def kernel_phase(cfg, dev):
                    f"yardstick_ms {yard:.4f} (3 torch.matmul + bias, ReLU, "
                    f"amax; graph replay)", yard)
 
+    mlp_cap_check(cfg, xyz, feat, w1, w2)
+
     # knn_group_xyz: float32 points, the train path's level 1
     got = grouping.knn_group_xyz(xyz, S1, k)
     want = grouping.knn_group_xyz_plain(xyz, S1, k)
@@ -385,6 +399,46 @@ def kernel_phase(cfg, dev):
     selection_check(gen, dev)
     trunk_check(gen, dev, record)
     return steps
+
+
+def mlp_cap_check(cfg, xyz, feat, w1, w2) -> None:
+    """``sa_mlp_max`` at k = 128 and 256, above the 64 rows a block takes at
+    a time (the kernel walks k in chunks of 64), at both levels' widths in
+    float32 and bf16 compute, within ``MLP_TOL_*`` of its plain version;
+    times by graph replay beside the plain version, the bound and the
+    yardstick (not on the main path: printed, not in the kernels line)."""
+    import torch
+    from pdfnet_tpu_torch.ops import sa
+
+    H = xyz.shape[0]
+    S1, S2 = cfg.sample_num_level1, cfg.sample_num_level2
+    for k in (128, 256):
+        g1 = sa.group_plain(xyz, S1, k, cfg.ball_radius)
+        g2 = sa.group_plain(feat, S2, k, cfg.ball_radius2)
+        for level, g, w in ((1, g1, w1), (2, g2, w2)):
+            for cdt in (torch.float32, torch.bfloat16):
+                gin = g.to(cdt).contiguous() if level == 2 else g
+                wc = [(wi.to(cdt), bi) for wi, bi in w]
+                got = sa.sa_mlp_max(gin, wc, cdt)
+                want = sa.mlp_max_plain(gin, wc, cdt)
+                torch.cuda.synchronize()
+                tol = MLP_TOL_BF16 if cdt == torch.bfloat16 else MLP_TOL_F32
+                err = (got - want).abs().max().item()
+                check(torch.allclose(got, want, **tol),
+                      f"sa_mlp_max k={k} level {level} [{cdt}] outside "
+                      f"{tol} (max abs {err})")
+                wb = [(wi.to(cdt), bi.to(cdt)) for wi, bi in w]
+                bound = mlp_bound(H, gin.shape[1], k, gin.shape[-1],
+                                  sa.MLP_WIDTHS[level - 1],
+                                  gin.element_size(), cdt == torch.bfloat16)
+                print(f"kernel sa_mlp_max [k={k} level {level} "
+                      f"{str(cdt).split('.')[-1]}]: max_abs_err {err:.3e} ms "
+                      f"{graph_ms(lambda: sa.sa_mlp_max(gin, wc, cdt)):.4f} "
+                      f"plain_ms "
+                      f"{time_ms(lambda: sa.mlp_max_plain(gin, wc, cdt), iters=5):.4f} "
+                      f"bound_ms {bound[0]:.4f} ({bound[1]}); yardstick_ms "
+                      f"{graph_ms(lambda: matmul_mlp_max(gin, wb)):.4f} "
+                      f"(3 torch.matmul + bias, ReLU, amax; graph replay)")
 
 
 def grouping_backward_check(cfg, xyz, feat, gen) -> None:
@@ -487,6 +541,33 @@ def selection_cases(gen):
             ("k = N = 1024, NaN/inf clusters", bad, 64, 1024, r)]
 
 
+def wide_selection_cases(gen):
+    """Clouds wider than 1024 points, whose ranked neighbours go to a
+    workspace, 16 hands (the main path's batch), as in ``selection_cases``:
+    up to 2048 points a lane keeps its 64 keys in registers, beyond it
+    recomputes them (N = 2050 and 4096).  The last flag marks the cases
+    whose level-1 selection is timed."""
+    import torch
+
+    def grid(n):
+        return torch.randint(-4, 5, (2 * BATCH, n, 3), generator=gen
+                             ).float() / 32
+    g2k, g4k, g2050, g1500 = grid(2048), grid(4096), grid(2050), grid(1500)
+    bad = grid(2048)
+    bad[:, 40:140] = float("nan")
+    bad[:, 1300:1400, 0] = float("inf")
+    cont = torch.rand((2 * BATCH, 4096, 3), generator=gen) * 0.4 - 0.2
+    r = 1.0 / 64
+    return [("N = 2048, grid ties, on radius", g2k, 512, 64, r, True),
+            ("N = 4096, grid ties", g4k, 512, 64, r, True),
+            ("N = 4096, continuous", cont, 512, 64, r, False),
+            ("N = 2050", g2050, 512, 64, r, False),
+            ("N = 1500, k = 100", g1500, 512, 100, r, False),
+            ("N = 2048, k = 128", g2k, 512, 128, r, True),
+            ("k = N = 2048, grid ties", g2k, 64, 2048, r, False),
+            ("N = 2048, NaN/inf clusters of 100", bad, 512, 64, r, False)]
+
+
 def same(got, want) -> bool:
     """Equal values, NaN equal to NaN; indices compared as int64."""
     import torch
@@ -498,17 +579,19 @@ def same(got, want) -> bool:
 
 def selection_check(gen, dev) -> None:
     """Every selection entry point against its plain version on the cases
-    of ``selection_cases``, failing on the first difference: ``knn`` with
+    of ``selection_cases`` and ``wide_selection_cases`` (timing sa_group_l1
+    on the wide cases marked so), failing on the first difference: ``knn`` with
     the first S rows as centers and with separate centers, ``knn_group_xyz``,
     ``sa_group_l1``, and ``sa_group_l2``/``group_feat`` on rows of 131
     float32 and bf16 channels."""
     import torch
     from pdfnet_tpu_torch.ops import grouping, sa
 
-    for name, xyz, S, k, r2 in selection_cases(gen):
-        N = xyz.shape[1]
-        feat = torch.cat([xyz, torch.randn((2, N, 128), generator=gen)], -1)
-        other = torch.randint(-4, 5, (2, 333, 3), generator=gen).float() / 32
+    cases = [c + (False,) for c in selection_cases(gen)]
+    for name, xyz, S, k, r2, timed in cases + wide_selection_cases(gen):
+        H, N = xyz.shape[:2]
+        feat = torch.cat([xyz, torch.randn((H, N, 128), generator=gen)], -1)
+        other = torch.randint(-4, 5, (H, 333, 3), generator=gen).float() / 32
         pts, ctr = xyz.to(dev), other.to(dev)
         calls = [("knn", lambda: sa.knn(pts[:, :S].contiguous(), pts, k),
                   lambda: sa.knn_select_plain(pts[:, :S], pts, k)),
@@ -534,8 +617,18 @@ def selection_check(gen, dev) -> None:
                   and all(same(g, w) for g, w in zip(got, want)),
                   f"{call} differs from its plain version on {name} "
                   f"(N={N}, S={S}, k={k})")
-        print(f"kernel selection [{name}: N={N}, S={S}, k={k}]: all "
+        print(f"kernel selection [{name}: H={H}, N={N}, S={S}, k={k}]: all "
               f"{len(calls)} entry-point calls equal their plain versions")
+        if timed:
+            ms, plain_ms, extra, _ = selection_times(
+                lambda: sa.sa_group_l1(pts, S, k, r2),
+                lambda: sa.group_plain(pts, S, k, r2),
+                lambda: topk_group(pts, S, k, r2))
+            bound = group_bound(H, N, 3, S, k, 4)
+            print(f"kernel sa_group_l1 [H={H}, N={N}, S={S}, k={k}]: ms "
+                  f"{ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+                  f"{bound[0]:.4f} ({bound[1]}){extra}")
+        del feat, pts, f
 
 
 def knn_bound(H, N, S, k):
@@ -804,6 +897,40 @@ def eval_phase(args, card, cfg, dev):
         for b, B in ((batch, BATCH), (big, 4 * BATCH)):
             profile(lambda b=b: step(b), f"eval_bf16_b{B}")
     return launches
+
+
+def cap_eval_check(cfg, dev) -> None:
+    """One float32 eval step at ``sample_num=2048``, ``knn_k=128`` (past the
+    1024 points and 64 rows of the first kernels) at batch 1, on the card
+    (its wide selection and chunked MLP) against the same model on the CPU
+    (plain versions), within STEP_TOL of each output's magnitude."""
+    import torch
+    import pdfnet_tpu_torch as port
+    from pdfnet_tpu_torch.ops import sa
+
+    c = cfg.replace(sample_num=2048, knn_k=128, compute_dtype="float32")
+    model = port.build_model(c, device=dev)
+    jitter_bn_(model, seed=4)
+    mcpu = port.HandNet(c).eval()
+    mcpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    host = bench_batch(1, c.default_resolution, c.sample_num, seed=2)
+    sa.reset_launches()
+    got = port.make_eval_step(c, model, port.load_loss_consts(dev))(host)
+    torch.cuda.synchronize()
+    check(sa.launches["sa_group_l1"] == 1 and sa.launches["sa_mlp_max"] == 2,
+          f"eval step at N=2048, k=128 did not run the kernels: {sa.launches}")
+    want = port.make_eval_step(c, mcpu, port.load_loss_consts("cpu"))(host)
+    worst = 0.0
+    for key in want:
+        g, w = got[key].cpu(), want[key]
+        check(bool(torch.isfinite(g).all()), f"{key} not finite")
+        scale = max(1.0, w.abs().max().item())
+        worst = max(worst, (g - w).abs().max().item() / scale)
+        check(torch.allclose(g, w, atol=STEP_TOL * scale, rtol=STEP_TOL),
+              f"f32 eval step at N=2048, k=128: card differs from the CPU "
+              f"in {key}")
+    print(f"eval step [f32, batch 1, sample_num 2048, knn_k 128] card agrees "
+          f"with cpu: worst error / scale {worst:.3e} <= {STEP_TOL}")
 
 
 # ---- phase 5: the train step -----------------------------------------------
@@ -1204,6 +1331,214 @@ def serve_check_phase(scfg, state, batch, dev) -> None:
           f"{worst:.3e} <= {STEP_TOL}")
 
 
+# ---- phase 7: the train/eval CLI on an H2O-format tree ----------------------
+
+# the mini tree: H2O's frame size and intrinsics, records per split (10 test
+# records at eval batch 8 leave a padded tail of 6)
+CLI_FRAME = (720, 1280)
+CLI_K = ((636.6593, 0.0, 635.2839), (0.0, 636.2520, 366.8740), (0, 0, 1))
+CLI_TRAIN, CLI_TEST = 24, 10
+
+
+def write_h2o_tree(root: str, seed: int = 0) -> None:
+    """An H2O-format tree (``{split}.pkl`` annotation caches, 16-bit depth in
+    mm, rgb, and masks with the right hand in G and the left in R) of
+    CLI_TRAIN + CLI_TEST records: two MANO hands with seeded coefficients
+    ~0.55 m from the camera, their vertices splatted 5x5 into the frames."""
+    import pickle
+
+    import cv2
+    import numpy as np
+    import torch
+    from pdfnet_tpu_torch.mano import layer as mano
+
+    rng = np.random.RandomState(seed)
+    H, W = CLI_FRAME
+    K = np.array(CLI_K, np.float32)
+    consts = {s: mano.load_mano_consts(s, device="cpu")
+              for s in ("left", "right")}
+    records = []
+    for i in range(CLI_TRAIN + CLI_TEST):
+        rel = f"subject1/h1/{i % 3}/cam4"
+        for sub in ("rgb", "depth", "mask"):
+            os.makedirs(os.path.join(root, "H2O", rel, sub), exist_ok=True)
+        coeff = np.zeros(124, np.float32)
+        joints, lms = [], []
+        img = np.full((H, W, 3), 60, np.uint8)
+        depth = np.zeros((H, W), np.uint16)
+        mask = np.zeros((H, W, 3), np.uint8)
+        for h, (side, xo) in enumerate((("left", -0.09), ("right", 0.06))):
+            o = 62 * h
+            coeff[o] = 1.0
+            coeff[o + 1:o + 4] = [xo + rng.uniform(-0.02, 0.02),
+                                  rng.uniform(-0.03, 0.03),
+                                  0.55 + rng.uniform(-0.05, 0.05)]
+            coeff[o + 4:o + 7] = rng.uniform(-0.3, 0.3, 3)
+            coeff[o + 7:o + 52] = rng.uniform(-0.2, 0.2, 45)
+            coeff[o + 52:o + 62] = rng.uniform(-0.5, 0.5, 10)
+            t = lambda a: torch.from_numpy(np.ascontiguousarray(a[None]))
+            with torch.no_grad():
+                v, j = mano.mano_forward(
+                    consts[side], t(coeff[o + 4:o + 7]),
+                    t(coeff[o + 7:o + 52]), t(coeff[o + 52:o + 62]),
+                    trans=t(coeff[o + 1:o + 4]))
+            v, j = v[0].numpy(), j[0].numpy()
+            joints.append(j)
+            pj = j @ K.T
+            lms.append(pj[:, :2] / pj[:, 2:])
+            pv = v @ K.T
+            uv = (pv[:, :2] / pv[:, 2:]).astype(int)
+            ok = ((uv[:, 0] >= 2) & (uv[:, 0] < W - 2) & (uv[:, 1] >= 2)
+                  & (uv[:, 1] < H - 2))
+            for (x, y), z in zip(uv[ok], v[ok, 2]):
+                depth[y - 2:y + 3, x - 2:x + 3] = int(z * 1000)
+                mask[y - 2:y + 3, x - 2:x + 3, 1 if side == "right" else 2] = 255
+                img[y - 2:y + 3, x - 2:x + 3] = (180, 140, 120)
+        name = f"{i:06d}.png"
+        cv2.imwrite(os.path.join(root, "H2O", rel, "rgb", name), img)
+        cv2.imwrite(os.path.join(root, "H2O", rel, "depth", name), depth)
+        cv2.imwrite(os.path.join(root, "H2O", rel, "mask", name), mask)
+        records.append({"imgpath": f"{rel}/rgb/{name}",
+                        "depthpath": f"{rel}/depth/{name}",
+                        "mano_coeff": coeff,
+                        "lms": np.concatenate(lms).astype(np.float32),
+                        "joints": np.concatenate(joints).astype(np.float32),
+                        "K": K, "id": 1 + i % 3})
+    for split, recs in (("train", records[:CLI_TRAIN]),
+                        ("test", records[CLI_TRAIN:])):
+        with open(os.path.join(root, f"H2O_{split}.pkl"), "wb") as f:
+            pickle.dump(recs, f)
+
+
+def cli_phase(card, dev) -> None:
+    """The port's train/eval CLI (``cli.main.main``) in process at the full
+    width of the default ``Config`` on an H2O-format tree: ``--mode train``
+    for 3 steps with an eval and a checkpoint, then ``--mode test`` from that
+    checkpoint.  Checks the score files, the kernels' launches per train
+    step and eval batch, the checkpoint round trip bit for bit, and a
+    float32 test-mode evaluation of the checkpoint on the card against the
+    CPU on 2 records; prints the train step, the loader's data wait and
+    the eval rate through the loader."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from pdfnet_tpu_torch.cli.main import main as cli_main
+    from pdfnet_tpu_torch.data.h2o import H2ODataset
+    from pdfnet_tpu_torch.ops import grouping, sa, trunk
+    from pdfnet_tpu_torch.train.trainer import Trainer
+
+    work = os.path.join(OUT_DIR, "cli")
+    shutil.rmtree(work, ignore_errors=True)
+    tree, out = os.path.join(work, "tree"), os.path.join(work, "out")
+    t0 = time.perf_counter()
+    write_h2o_tree(tree)
+    print(f"cli: H2O-format tree of {CLI_TRAIN} train and {CLI_TEST} test "
+          f"records at {CLI_FRAME[1]}x{CLI_FRAME[0]} written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    common = ["--cache_path", tree, "--pre_fix", tree, "--output_path", out,
+              "--batch_size", str(BATCH), "--eval_batch_size", str(BATCH)]
+
+    # the main path, once, through the user's entry point
+    for m in (sa, grouping, trunk):
+        m.reset_launches()
+    t0 = time.perf_counter()
+    trainer = cli_main(["--mode", "train", "--num_epochs", "1", "--steps",
+                        "3", "--eval_every", "1", "--save_every", "1",
+                        "--profile_sync"] + common)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**sa.launches, **grouping.launches, **trunk.launches}
+    steps, batches = 3, -(-CLI_TEST // BATCH)
+    print(f"cli --mode train [bf16, batch {BATCH}, {steps} steps, eval of "
+          f"{CLI_TEST} records]: kernel launches {json.dumps(launches)}; "
+          f"{wall:.1f} s")
+    want = {"knn_group_xyz": steps, "group_feat": steps,
+            "sa_group_l1": batches, "sa_group_l2": batches,
+            "sa_mlp_max": 2 * batches}
+    check(all(launches[n] == v for n, v in want.items())
+          and not any(launches[n] for n in launches if n not in want),
+          f"cli train: expected launches {want}, got {launches}")
+    prof = trainer.profiler
+    # the first batch's wait fills the prefetch queue, the last is steady
+    print(f"cli train s/step [bf16, batch {BATCH}, through the loader]: "
+          f"{prof.batch_time.avg:.4f} (last {prof.batch_time.val:.4f}); "
+          f"data wait ms/batch {prof.data_time.avg * 1e3:.2f} (last "
+          f"{prof.data_time.val * 1e3:.2f}) ({card})")
+    ckpt = os.path.join(out, "ckpt", "default", "model_0")
+    vals = [p for p in os.listdir(os.path.join(out, "logs", "interact",
+                                               "default"))]
+    check(os.path.exists(ckpt) and len(vals) == 1, "cli train: no checkpoint "
+          "or log directory")
+    block = open(os.path.join(out, "logs", "interact", "default", vals[0],
+                              "H2O-val.txt")).read()
+    check(len(block.splitlines()) == 9, f"cli train: H2O-val.txt:\n{block}")
+    saved = {n: p.detach().cpu().clone()
+             for n, p in trainer.model.named_parameters()}
+    del trainer
+
+    t0 = time.perf_counter()
+    tester = cli_main(["--mode", "test", "--load_model", ckpt] + common)
+    torch.cuda.synchronize()
+    print(f"cli --mode test: {time.perf_counter() - t0:.1f} s")
+    restored = dict(tester.model.named_parameters())
+    check(set(restored) == set(saved) and all(
+        torch.equal(restored[n].detach().cpu(), saved[n]) for n in saved),
+        "cli test: restored parameters differ from the trained ones")
+    text = open(os.path.join(out, "H2O-val.txt")).read()
+    vals = [float(line.split(": ")[1]) for line in text.splitlines()[1:]]
+    check(len(vals) == 8 and all(np.isfinite(vals)),
+          f"cli test: H2O-val.txt not 8 finite values:\n{text}")
+    with open(os.path.join(out, "hand_poses.json")) as f:
+        sub = json.load(f)
+    frames = [len(v) for k, v in sub.items() if k != "modality"]
+    entries = [x for k, v in sub.items() if k != "modality"
+               for x in v.values()]
+    check(sub.get("modality") == "RGBD" and sum(frames) == CLI_TEST
+          and all(len(x) == 126 and np.isfinite(x).all() for x in entries),
+          f"cli test: hand_poses.json has {sum(frames)} entries, want "
+          f"{CLI_TEST} of 126 finite values (two hands of 21 joints)")
+    print(f"cli test: H2O-val.txt and hand_poses.json ({CLI_TEST} entries) "
+          f"written; parameters restored bit for bit; metrics {vals}")
+
+    # eval frames/s through the loader (the test split, padded tail)
+    data = H2ODataset(tester.cfg, "test")
+    tester.evaluate(data.batches(BATCH, 0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tester.evaluate(data.batches(BATCH, 0))
+    torch.cuda.synchronize()
+    print(f"cli eval frames/s [bf16, batch {BATCH}, through the loader]: "
+          f"{CLI_TEST / (time.perf_counter() - t0):.2f} ({card})")
+    del tester
+
+    # float32 test mode of the checkpoint: the card against the CPU
+    cfg32 = data.cfg.replace(compute_dtype="float32", load_model=ckpt)
+    batch = next(H2ODataset(cfg32, "test").batches(2, 0))
+    outs = []
+    for d in (dev, "cpu"):
+        t = Trainer(cfg32, device=d)
+        t.init_state()
+        t.load(ckpt, resume_optimizer=False)
+        outs.append({k: v.cpu() for k, v in t.eval_step(batch).items()})
+        del t
+    worst = 0.0
+    for key, w in outs[1].items():
+        g = outs[0][key]
+        scale = max(1.0, w.abs().max().item())
+        worst = max(worst, (g - w).abs().max().item() / scale)
+        check(torch.allclose(g, w, atol=STEP_TOL * scale, rtol=STEP_TOL),
+              f"cli f32 test mode: card differs from the CPU in {key}")
+    print(f"cli test mode [f32, 2 records] card agrees with cpu: worst error "
+          f"/ scale {worst:.3e} <= {STEP_TOL}")
+    # keep the score files; the tree and the checkpoint (~300 MB) go
+    keep = os.path.join(OUT_DIR, "cli_scores")
+    os.makedirs(keep, exist_ok=True)
+    for name in ("H2O-val.txt", "hand_poses.json"):
+        shutil.copy(os.path.join(out, name), keep)
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def profile(fn, label: str, steps: int = 5) -> None:
     """Device time by kernel over a few steps of ``fn``: the table goes to
     chiprun_out/profile_{label}.txt, a summary line (device busy share, the
@@ -1292,11 +1627,13 @@ def main() -> int:
     cfg, dev = Config(), torch.device("cuda")     # bf16, the default
     steps = kernel_phase(cfg, dev)
     launches = eval_phase(args, card, cfg, dev)
+    cap_eval_check(cfg, dev)
     launches.update({n: v for n, v in train_phase(args, card, cfg, dev).items()
                      if n in TRAIN_KERNELS})
     train_check_phase(cfg, dev)
     launches.update({n: v for n, v in serve_phase(args, card, cfg, dev).items()
                      if n in SERVE_KERNELS or n == "fused_bottleneck_s2"})
+    cli_phase(card, dev)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

@@ -64,6 +64,15 @@
 // Shared memory grows with k (two (8, k) arrays of 8-byte composites): above
 // 48 KB (k > 288 at N = 1024) the launch opts in, up to 140 KB at
 // k = N = 1024.
+//
+// Wide clouds (N > 1024): the ranked composites go to a global workspace
+// of (H, S, k) 8-byte entries instead of a second shared array, so shared
+// memory is 8 * k * 8 + 12 * N bytes: N = 4096 takes k <= 2864, k = N up
+// to N = 3058 (kMaxSmem, the H100's 227 KB a block, is the one limit;
+// ops/sa.selection_smem_bytes mirrors it).  Up to N = 2048 the lane keeps
+// its 64 keys in registers (PL = 64); wider, every pass of phases 1-3
+// recomputes them from the staged xyz (PL = 0: three subtractions, three
+// products, two sums and the compare a key, bit-identical to phase 1's).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,8 +82,10 @@
 namespace {
 
 constexpr int kWarps = 8;                   // centers (warps) per block
-constexpr int kMaxPoints = 1024;
+constexpr int kWidePoints = 1024;   // wider: ranked composites in a workspace
+constexpr int kRegKeys = 2048;      // keys in registers up to here (PL <= 64)
 constexpr int kSmemDefault = 48 * 1024;     // above it only by opting in
+constexpr size_t kMaxSmem = 232448;         // 227 KB a block on the H100
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kNaNKey = 0x7fc00000u;   // canonical NaN, above +inf
 constexpr unsigned kPad = 0xffffffffu;      // past the hand: never selected
@@ -90,6 +101,63 @@ __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+
+// The rank key of point n (phase 1): d2's bit pattern, NaN canonicalised
+// above +inf, kPad past the hand.
+__device__ __forceinline__ unsigned point_key(const float* __restrict__ sxyz,
+                                              int n, int N, float cx,
+                                              float cy, float cz) {
+  if (n >= N) return kPad;
+  const float dx = __fsub_rn(sxyz[3 * n + 0], cx);
+  const float dy = __fsub_rn(sxyz[3 * n + 1], cy);
+  const float dz = __fsub_rn(sxyz[3 * n + 2], cz);
+  const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                            __fmul_rn(dz, dz));
+  return d != d ? kNaNKey : __float_as_uint(d);
+}
+
+// Bounds of T from the lanes' smallest (m1) and second smallest (m2) keys.
+// With m = ceil(K/32): every lane holds at least m keys <= the largest
+// lane's m-th smallest (so count(<= hi) >= 32m >= K), and at most m - 1
+// keys < the smallest lane's m-th smallest (so count(< lo) <= 32(m - 1) <
+// K).  Every real key is <= kNaNKey.
+__device__ __forceinline__ void threshold_bounds(unsigned m1, unsigned m2,
+                                                 int K, unsigned& lo,
+                                                 unsigned& hi) {
+  if (K <= 32) {
+    lo = __reduce_min_sync(kFull, m1);
+    hi = __reduce_max_sync(kFull, m1);
+  } else if (K <= 64) {
+    lo = __reduce_min_sync(kFull, m2);
+    hi = __reduce_max_sync(kFull, m2);
+  } else {
+    lo = __reduce_min_sync(kFull, m1);
+    hi = kNaNKey;
+  }
+  hi = min(hi, kNaNKey);
+}
+
+// Phase 3's ranking: each of the K unique composites in cand goes to its
+// rank in sorted; two per lane and pass, every lane reading the same
+// composite (a broadcast).
+__device__ __forceinline__ void rank_composites(
+    const unsigned long long* __restrict__ cand,
+    unsigned long long* __restrict__ sorted, int K) {
+  const int lane = threadIdx.x & 31;
+  for (int base = 0; base < K; base += 64) {
+    const int i0 = base + lane, i1 = i0 + 32;
+    const unsigned long long c0 = i0 < K ? cand[i0] : ~0ull;
+    const unsigned long long c1 = i1 < K ? cand[i1] : ~0ull;
+    int r0 = 0, r1 = 0;
+    for (int i = 0; i < K; ++i) {
+      const unsigned long long c = cand[i];
+      r0 += c < c0;
+      r1 += c < c1;
+    }
+    if (i0 < K) sorted[r0] = c0;
+    if (i1 < K) sorted[r1] = c1;
+  }
 }
 
 // Phases 1-3 for one center: writes its k neighbours' (key << 32 | index)
@@ -119,22 +187,9 @@ __device__ __forceinline__ void select_center(
     m1 = min(m1, a);
   }
 
-  // Bounds of T.  With m = ceil(K/32): every lane holds at least m keys <=
-  // the largest lane's m-th smallest (so count(<= hi) >= 32m >= K), and at
-  // most m - 1 keys < the smallest lane's m-th smallest (so count(< lo) <=
-  // 32(m - 1) < K).  Every real key is <= kNaNKey.
+  // bounds of T
   unsigned lo, hi;
-  if (K <= 32) {
-    lo = __reduce_min_sync(kFull, m1);
-    hi = __reduce_max_sync(kFull, m1);
-  } else if (K <= 64) {
-    lo = __reduce_min_sync(kFull, m2);
-    hi = __reduce_max_sync(kFull, m2);
-  } else {
-    lo = __reduce_min_sync(kFull, m1);
-    hi = kNaNKey;
-  }
-  hi = min(hi, kNaNKey);
+  threshold_bounds(m1, m2, K, lo, hi);
 
   // the smallest T with count(key <= T) >= K
   while (lo < hi) {
@@ -173,22 +228,62 @@ __device__ __forceinline__ void select_center(
     eq_seen += __popc(beq);
   }
   __syncwarp();
+  rank_composites(cand, sorted, K);
+}
 
-  // rank of each survivor among the K unique composites; two per lane and
-  // pass, every lane reading the same composite (a broadcast)
-  for (int base = 0; base < K; base += 64) {
-    const int i0 = base + lane, i1 = i0 + 32;
-    const unsigned long long c0 = i0 < K ? cand[i0] : ~0ull;
-    const unsigned long long c1 = i1 < K ? cand[i1] : ~0ull;
-    int r0 = 0, r1 = 0;
-    for (int i = 0; i < K; ++i) {
-      const unsigned long long c = cand[i];
-      r0 += c < c0;
-      r1 += c < c1;
-    }
-    if (i0 < K) sorted[r0] = c0;
-    if (i1 < K) sorted[r1] = c1;
+// Phases 1-3 for clouds wider than kRegKeys: the same selection with each
+// lane's keys j = 0 .. ceil(N/32) - 1 recomputed on every pass.
+__device__ __forceinline__ void select_center_wide(
+    const float* __restrict__ sxyz, float cx, float cy, float cz, int N,
+    int K, unsigned long long* __restrict__ cand,
+    unsigned long long* __restrict__ sorted) {
+  const int lane = threadIdx.x & 31;
+  const int J = (N + 31) / 32;
+  unsigned m1 = kPad, m2 = kPad;
+  for (int j = 0; j < J; ++j) {
+    const unsigned a = point_key(sxyz, j * 32 + lane, N, cx, cy, cz);
+    m2 = min(m2, max(m1, a));
+    m1 = min(m1, a);
   }
+  unsigned lo, hi;
+  threshold_bounds(m1, m2, K, lo, hi);
+  while (lo < hi) {
+    const unsigned mid = lo + ((hi - lo) >> 1);
+    unsigned c = 0;
+    for (int j = 0; j < J; ++j) {
+      c += point_key(sxyz, j * 32 + lane, N, cx, cy, cz) <= mid ? 1u : 0u;
+    }
+    if (__reduce_add_sync(kFull, c) >= static_cast<unsigned>(K)) {
+      hi = mid;
+    } else {
+      lo = mid + 1;
+    }
+  }
+  const unsigned T = lo;
+  unsigned less = 0;
+  for (int j = 0; j < J; ++j) {
+    less += point_key(sxyz, j * 32 + lane, N, cx, cy, cz) < T ? 1u : 0u;
+  }
+  const unsigned take = K - __reduce_add_sync(kFull, less);   // >= 1
+
+  const unsigned below = (1u << lane) - 1u;
+  unsigned eq_seen = 0, pos = 0;
+  for (int j = 0; j < J; ++j) {
+    const unsigned a = point_key(sxyz, j * 32 + lane, N, cx, cy, cz);
+    const bool eq = a == T;
+    const unsigned beq = __ballot_sync(kFull, eq);
+    const bool sel = a < T || (eq && eq_seen + __popc(beq & below) < take);
+    const unsigned bsel = __ballot_sync(kFull, sel);
+    if (sel) {
+      cand[pos + __popc(bsel & below)] =
+          (static_cast<unsigned long long>(a) << 32) |
+          static_cast<unsigned>(j * 32 + lane);
+    }
+    pos += __popc(bsel);
+    eq_seen += __popc(beq);
+  }
+  __syncwarp();
+  rank_composites(cand, sorted, K);
 }
 
 // Rows of C >= 32 channels (level 2): warp w copies rows q = w, w + kWarps,
@@ -251,20 +346,27 @@ __device__ __forceinline__ void write_rows(
 // kBall: substitute out-of-ball neighbours (else always row - center).
 // kRows: write the grouped rows (else only idx and d2).
 // centers: (H, S, 3) float32, or nullptr for the first S rows of feat.
-// Shared memory: two (kWarps, K) arrays of composites, then the (N, 3) xyz.
+// PL: keys per lane in registers, or 0 to recompute them.  Wide clouds
+// (PL == 0 or 64, N > kWidePoints) rank their composites into ws, (H, S, K)
+// entries.  Shared memory: two (kWarps, K) arrays of composites (one for a
+// wide cloud), then the (N, 3) xyz.
 template <typename T, bool kSel, bool kBall, bool kRows, int PL>
 __global__ void __launch_bounds__(kWarps * 32)
 sa_group_kernel(const T* __restrict__ feat, T* __restrict__ out,
                 int32_t* __restrict__ idx_out, float* __restrict__ dist_out,
-                const float* __restrict__ centers, int N, int C, int S, int K,
-                float r2) {
+                const float* __restrict__ centers,
+                unsigned long long* __restrict__ ws, int N, int C, int S,
+                int K, float r2) {
+  constexpr bool kWide = PL == 0 || PL > 32;
   extern __shared__ __align__(16) unsigned char smem[];
-  unsigned long long* cand = reinterpret_cast<unsigned long long*>(smem);
-  unsigned long long* sorted = cand + kWarps * K;
-  float* sxyz = reinterpret_cast<float*>(sorted + kWarps * K);
-
   const int h = blockIdx.y;
   const int s0 = blockIdx.x * kWarps;
+  unsigned long long* cand = reinterpret_cast<unsigned long long*>(smem);
+  unsigned long long* sorted =
+      kWide ? ws + (static_cast<int64_t>(h) * S + s0) * K
+            : cand + kWarps * K;
+  float* sxyz = reinterpret_cast<float*>(cand + (kWide ? 1 : 2) * kWarps * K);
+
   const T* fh = feat + static_cast<int64_t>(h) * N * C;
   for (int i = threadIdx.x; i < N; i += blockDim.x) {
     const T* row = fh + static_cast<int64_t>(i) * C;
@@ -280,8 +382,13 @@ sa_group_kernel(const T* __restrict__ feat, T* __restrict__ out,
     const float* ctr = centers != nullptr
                            ? centers + (static_cast<int64_t>(h) * S + s) * 3
                            : sxyz + 3 * s;
-    select_center<PL>(sxyz, ctr[0], ctr[1], ctr[2], N, K, cand + w * K,
-                      sorted + w * K);
+    if constexpr (PL > 0) {
+      select_center<PL>(sxyz, ctr[0], ctr[1], ctr[2], N, K, cand + w * K,
+                        sorted + w * K);
+    } else {
+      select_center_wide(sxyz, ctr[0], ctr[1], ctr[2], N, K, cand + w * K,
+                         sorted + w * K);
+    }
   }
   __syncthreads();
 
@@ -353,7 +460,8 @@ sa_group_kernel(const T* __restrict__ feat, T* __restrict__ out,
 template <typename T, bool kSel, bool kBall, bool kRows, int PL>
 int launch_pl(dim3 grid, size_t smem, cudaStream_t stream,
               const T* feat, T* out, int32_t* idx, float* dist,
-              const float* centers, int N, int C, int S, int K, float r2) {
+              const float* centers, unsigned long long* ws, int N, int C,
+              int S, int K, float r2) {
   auto kernel = sa_group_kernel<T, kSel, kBall, kRows, PL>;
   if (smem > static_cast<size_t>(kSmemDefault)) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -362,84 +470,108 @@ int launch_pl(dim3 grid, size_t smem, cudaStream_t stream,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   kernel<<<grid, kWarps * 32, smem, stream>>>(feat, out, idx, dist, centers,
-                                              N, C, S, K, r2);
+                                              ws, N, C, S, K, r2);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Mirrored by ops/sa.selection_smem_bytes.
+size_t smem_bytes(int N, int K) {
+  const size_t lists = N > kWidePoints ? 1 : 2;
+  return lists * kWarps * K * sizeof(unsigned long long) +
+         static_cast<size_t>(N) * 3 * sizeof(float);
+}
+
+// ws: (H, S, K) 8-byte entries, needed (and only used) when N > kWidePoints.
 template <typename T, bool kSel, bool kBall, bool kRows = true>
-int launch(const void* feat, void* out, void* idx, void* dist, int H, int N,
-           int C, int S, int K, float r2, void* stream,
+int launch(const void* feat, void* out, void* idx, void* dist, void* ws,
+           int H, int N, int C, int S, int K, float r2, void* stream,
            const void* centers = nullptr) {
   // without separate centers, the centers are the first S rows
-  if (H < 1 || H > 65535 || N < 1 || N > kMaxPoints || C < 3 || S < 1 ||
-      (centers == nullptr && S > N) || K < 1 || K > N) {
+  if (H < 1 || H > 65535 || N < 1 || C < 3 || S < 1 ||
+      (centers == nullptr && S > N) || K < 1 || K > N ||
+      (N > kWidePoints && ws == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const size_t smem = smem_bytes(N, K);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((S + kWarps - 1) / kWarps, H);
-  const size_t smem = static_cast<size_t>(kWarps) * K * 16 +
-                      static_cast<size_t>(N) * 3 * sizeof(float);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* f = static_cast<const T*>(feat);
   T* o = static_cast<T*>(out);
   int32_t* i = static_cast<int32_t*>(idx);
   float* d = static_cast<float*>(dist);
   const float* c = static_cast<const float*>(centers);
+  auto* w = static_cast<unsigned long long*>(ws);
   if (N <= 256) {
     return launch_pl<T, kSel, kBall, kRows, 8>(grid, smem, st, f, o, i, d,
-                                               c, N, C, S, K, r2);
+                                               c, w, N, C, S, K, r2);
   }
   if (N <= 512) {
     return launch_pl<T, kSel, kBall, kRows, 16>(grid, smem, st, f, o, i, d,
-                                                c, N, C, S, K, r2);
+                                                c, w, N, C, S, K, r2);
   }
-  return launch_pl<T, kSel, kBall, kRows, 32>(grid, smem, st, f, o, i, d,
-                                              c, N, C, S, K, r2);
+  if (N <= kWidePoints) {
+    return launch_pl<T, kSel, kBall, kRows, 32>(grid, smem, st, f, o, i, d,
+                                                c, w, N, C, S, K, r2);
+  }
+  if (N <= kRegKeys) {
+    return launch_pl<T, kSel, kBall, kRows, 64>(grid, smem, st, f, o, i, d,
+                                                c, w, N, C, S, K, r2);
+  }
+  return launch_pl<T, kSel, kBall, kRows, 0>(grid, smem, st, f, o, i, d, c,
+                                             w, N, C, S, K, r2);
 }
 
 }  // namespace
 
+// Every entry point takes ws, a device workspace of H * S * K 8-byte entries
+// that is used only for wide clouds (N > 1024) and may be null otherwise.
+
 // Eval, level 1: points (H, N, 3) float32 -> out (H, S, K, 3) float32.
-extern "C" int sa_group_l1(const void* points, void* out, int H, int N, int S,
-                           int K, float r2, void* stream) {
-  return launch<float, false, true>(points, out, nullptr, nullptr, H, N, 3, S,
-                                    K, r2, stream);
+extern "C" int sa_group_l1(const void* points, void* out, void* ws, int H,
+                           int N, int S, int K, float r2, void* stream) {
+  return launch<float, false, true>(points, out, nullptr, nullptr, ws, H, N,
+                                    3, S, K, r2, stream);
 }
 
 // Eval, level 2: feat (H, N, C) float32 (bf16 == 0) or bfloat16 (bf16 == 1)
 // -> out (H, S, K, C) of the same type.
-extern "C" int sa_group_l2(const void* feat, void* out, int H, int N, int C,
-                           int S, int K, float r2, int bf16, void* stream) {
+extern "C" int sa_group_l2(const void* feat, void* out, void* ws, int H,
+                           int N, int C, int S, int K, float r2, int bf16,
+                           void* stream) {
   return bf16 ? launch<__nv_bfloat16, false, true>(feat, out, nullptr, nullptr,
-                                                   H, N, C, S, K, r2, stream)
-              : launch<float, false, true>(feat, out, nullptr, nullptr, H, N,
-                                           C, S, K, r2, stream);
+                                                   ws, H, N, C, S, K, r2,
+                                                   stream)
+              : launch<float, false, true>(feat, out, nullptr, nullptr, ws, H,
+                                           N, C, S, K, r2, stream);
 }
 
 // Train, level 1: points (H, N, 3) float32 -> dist (H, S, K) float32,
 // idx (H, S, K) int32, nbr (H, S, K, 3) float32 centered, not substituted.
 extern "C" int knn_group_xyz(const void* points, void* dist, void* idx,
-                             void* nbr, int H, int N, int S, int K,
+                             void* nbr, void* ws, int H, int N, int S, int K,
                              void* stream) {
-  return launch<float, true, false>(points, nbr, idx, dist, H, N, 3, S, K,
+  return launch<float, true, false>(points, nbr, idx, dist, ws, H, N, 3, S, K,
                                     0.0f, stream);
 }
 
 // Train, level 2: sa_group_l2's output plus idx (H, S, K) int32 and
 // dist (H, S, K) float32.
 extern "C" int group_feat(const void* feat, void* out, void* idx, void* dist,
-                          int H, int N, int C, int S, int K, float r2,
-                          int bf16, void* stream) {
-  return bf16 ? launch<__nv_bfloat16, true, true>(feat, out, idx, dist, H, N,
-                                                  C, S, K, r2, stream)
-              : launch<float, true, true>(feat, out, idx, dist, H, N, C, S, K,
-                                          r2, stream);
+                          void* ws, int H, int N, int C, int S, int K,
+                          float r2, int bf16, void* stream) {
+  return bf16 ? launch<__nv_bfloat16, true, true>(feat, out, idx, dist, ws, H,
+                                                  N, C, S, K, r2, stream)
+              : launch<float, true, true>(feat, out, idx, dist, ws, H, N, C,
+                                          S, K, r2, stream);
 }
 
 // knn_pallas: centers (H, S, 3) and points (H, N, 3) float32 -> dist (H, S, K)
 // float32 ascending, idx (H, S, K) int32.
 extern "C" int knn(const void* centers, const void* points, void* dist,
-                   void* idx, int H, int N, int S, int K, void* stream) {
+                   void* idx, void* ws, int H, int N, int S, int K,
+                   void* stream) {
   if (centers == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<float, true, false, false>(points, nullptr, idx, dist, H, N, 3,
-                                           S, K, 0.0f, stream, centers);
+  return launch<float, true, false, false>(points, nullptr, idx, dist, ws, H,
+                                           N, 3, S, K, 0.0f, stream, centers);
 }

@@ -17,7 +17,7 @@
 // 212 KB with the row buffers) and then looping over pairs of centers.  A
 // pair's grouped rows are copied as they lie in device memory by cp.async,
 // double buffered, so the next pair's rows load while this pair multiplies.
-// Each of a center's 4 warps owns 16 of its k <= 64 rows and builds layer
+// Each of a center's 4 warps owns 16 of its first 64 rows and builds layer
 // 1's A fragments from that copy, rounded to bf16, zero past k rows and C
 // channels (C padded to a multiple of 16: level 1's C = 3 becomes one exact
 // k16 slice).  Layer 1's float32 accumulators, + bias and ReLU, rounded
@@ -30,6 +30,14 @@
 // rows are read from device memory and only the pooled (F3,) float32 vector
 // is written.  Rounding points as before: inputs and each hidden layer to
 // bf16, bias and ReLU in float32.
+//
+// k > 64 (both bodies): the k rows are walked in chunks of 64, the block's
+// rows, and the max runs across chunks: in a register of each thread in
+// the float32 body, in each warp's slot of the maxima in the bf16 body
+// (written and re-read by the lane that owns the column).  The bf16 body
+// then stages a pair's chunk as two ranges, one per center, so that its
+// row buffers are those of k = 64 whatever k is; k <= 64 is one chunk and
+// the code path of before.
 //
 // float32 compute (sa_mlp_max_kernel): float32 FMAs on the CUDA cores, one
 // block of 256 threads per center, rows and hidden layers in shared memory,
@@ -56,21 +64,22 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRows = 64;  // k <= 64
+constexpr int kRows = 64;  // rows a block takes at a time: a chunk of k
 constexpr size_t kMaxSmem = 232448;  // 227 KB per block on the H100
 
 // ---- float32 compute: the CUDA-core body ----------------------------------
 
 // y[r, c] = relu(sum_i x[r, i] * w[i, c] + b[c]) for kRows rows.
 // x: shared (kRows, cin_pad), zero beyond cin; w: global (cin, COUT).
-// LAST: instead of storing y, write each row group's max over its valid rows
-// (r < K) to red[group, c].
+// LAST: instead of storing y, fold the thread's row group's max over its
+// valid rows (r < K, the chunk's rows) into run.
 template <int COUT, bool LAST>
 __device__ __forceinline__ void layer(const float* __restrict__ x, int cin,
                                       int cin_pad,
                                       const float* __restrict__ w,
                                       const float* __restrict__ b,
-                                      float* __restrict__ y, int K) {
+                                      float* __restrict__ y, int K,
+                                      float& run) {
   static_assert(kThreads % COUT == 0, "COUT must divide the block");
   constexpr int kGroups = kThreads / COUT;
   constexpr int R = kRows / kGroups;
@@ -103,7 +112,7 @@ __device__ __forceinline__ void layer(const float* __restrict__ x, int cin,
     for (int r = 0; r < R; ++r) {
       if (r0 + r < K) m = fmaxf(m, fmaxf(acc[r] + bv, 0.0f));
     }
-    y[(threadIdx.x / COUT) * COUT + c] = m;
+    run = fmaxf(run, m);
   } else {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -112,7 +121,8 @@ __device__ __forceinline__ void layer(const float* __restrict__ x, int cin,
   }
 }
 
-template <int F1, int F2, int F3>
+// kChunked (k > kRows): the rows in chunks of kRows; otherwise all k at once.
+template <int F1, int F2, int F3, bool kChunked>
 __global__ void __launch_bounds__(kThreads)
 sa_mlp_max_kernel(const float* __restrict__ g, int K, int C, int c_pad,
                   const float* __restrict__ w1, const float* __restrict__ b1,
@@ -124,18 +134,25 @@ sa_mlp_max_kernel(const float* __restrict__ g, int K, int C, int c_pad,
   float* h1 = x0 + kRows * c_pad;               // (kRows, F1)
   float* h2 = h1 + kRows * F1;                  // (kRows, F2)
   const int64_t center = blockIdx.x;
-  const float* gc = g + center * K * C;
-  for (int idx = threadIdx.x; idx < kRows * c_pad; idx += kThreads) {
-    const int r = idx / c_pad, i = idx % c_pad;
-    x0[idx] = (r < K && i < C) ? gc[r * C + i] : 0.0f;
+  float run = -CUDART_INF_F;  // this thread's column over its row groups
+  // chunks of kRows rows; layer 1 reads x0 two barriers before the next
+  // chunk overwrites it, and each layer's output likewise
+  for (int c0 = 0; c0 < (kChunked ? K : 1); c0 += kRows) {
+    const int kr = kChunked ? min(kRows, K - c0) : K;
+    const float* gc = g + (center * K + c0) * C;
+    for (int idx = threadIdx.x; idx < kRows * c_pad; idx += kThreads) {
+      const int r = idx / c_pad, i = idx % c_pad;
+      x0[idx] = (r < kr && i < C) ? gc[r * C + i] : 0.0f;
+    }
+    __syncthreads();
+    layer<F1, false>(x0, C, c_pad, w1, b1, h1, kr, run);
+    __syncthreads();
+    layer<F2, false>(h1, F1, F1, w2, b2, h2, kr, run);
+    __syncthreads();
+    layer<F3, true>(h2, F2, F2, w3, b3, nullptr, kr, run);
   }
-  __syncthreads();
-  layer<F1, false>(x0, C, c_pad, w1, b1, h1, K);
-  __syncthreads();
-  layer<F2, false>(h1, F1, F1, w2, b2, h2, K);
-  __syncthreads();
   float* red = x0;  // (kThreads / F3, F3) group maxima; x0 is free now
-  layer<F3, true>(h2, F2, F2, w3, b3, red, K);
+  red[threadIdx.x] = run;  // (group, c) = threadIdx.x
   __syncthreads();
   constexpr int kGroups = kThreads / F3;
   for (int c = threadIdx.x; c < F3; c += kThreads) {
@@ -153,7 +170,8 @@ int launch_f32(const void* g, int HS, int K, int C, const void* const* p,
   // the group maxima reuse x0, which must hold them
   if (kRows * c_pad < kThreads) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(float) * kRows * (c_pad + F1 + F2);
-  auto kernel = sa_mlp_max_kernel<F1, F2, F3>;
+  auto kernel = K > kRows ? sa_mlp_max_kernel<F1, F2, F3, true>
+                          : sa_mlp_max_kernel<F1, F2, F3, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -181,10 +199,15 @@ __device__ __forceinline__ bf16 to_bf16(float v) {
 }
 __device__ __forceinline__ bf16 to_bf16(bf16 v) { return v; }
 
-// Bytes of one raw buffer: the rows of kCenters centers as they lie in
-// device memory, from the 16-byte boundary below the first.
+// Bytes of one raw buffer.  k <= kRows: the rows of kCenters centers as
+// they lie in device memory, from the 16-byte boundary below the first.
+// k > kRows: one slot a center (slot_bytes) for a chunk of its rows.
+__host__ __device__ __forceinline__ int slot_bytes(int C, int esize) {
+  return (kRows * C * esize + 16 + 15) / 16 * 16;
+}
 __host__ __device__ __forceinline__ int raw_bytes(int K, int C, int esize) {
-  return (kCenters * K * C * esize + 16 + 15) / 16 * 16;
+  return K <= kRows ? (kCenters * K * C * esize + 16 + 15) / 16 * 16
+                    : kCenters * slot_bytes(C, esize);
 }
 
 // Mirrored by ops/sa.mlp_tc_smem_bytes.
@@ -265,7 +288,9 @@ __device__ __forceinline__ void to_fragments(uint32_t (&a)[NT / 2][4],
   }
 }
 
-template <int F1, int F2, int F3, typename TIn>
+// kChunked (k > kRows): a pair's rows in chunks of kRows; otherwise one
+// chunk of all k rows, staged as one range.
+template <int F1, int F2, int F3, typename TIn, bool kChunked>
 __global__ void __launch_bounds__(kThreads)
 sa_mlp_tc_kernel(const TIn* __restrict__ g, int HS, int K, int C,
                  const bf16* __restrict__ w1, const float* __restrict__ b1,
@@ -281,16 +306,41 @@ sa_mlp_tc_kernel(const TIn* __restrict__ g, int HS, int K, int C,
   char* raw = reinterpret_cast<char*>(sw3 + F2 * (F3 + 8));  // 2 x rb bytes
   float* red = reinterpret_cast<float*>(raw + 2 * rb);
 
-  const int64_t center_bytes = static_cast<int64_t>(K) * C * sizeof(TIn);
+  const int64_t row_bytes = static_cast<int64_t>(C) * sizeof(TIn);
+  const int64_t center_bytes = K * row_bytes;
   const int64_t total = HS * center_bytes;
   const int64_t step = static_cast<int64_t>(gridDim.x) * kCenters;
-  auto stage = [&](int buf, int64_t base) {
-    const int64_t end = base + kCenters < HS ? base + kCenters : HS;
-    return stage_raw(raw + buf * rb, reinterpret_cast<const char*>(g),
-                     base * center_bytes, end * center_bytes, total);
+  const int nch = kChunked ? (K + kRows - 1) / kRows : 1;
+  // stage chunk ch of the pair at base into buffer buf; head[i]: the byte
+  // offset of center i's first row in that buffer
+  auto stage = [&](int buf, int64_t base, int ch, int (&head)[kCenters]) {
+    const char* gb = reinterpret_cast<const char*>(g);
+    if constexpr (!kChunked) {
+      const int64_t end = base + kCenters < HS ? base + kCenters : HS;
+      const int h0 = stage_raw(raw + buf * rb, gb, base * center_bytes,
+                               end * center_bytes, total);
+#pragma unroll
+      for (int i = 0; i < kCenters; ++i) {
+        head[i] = h0 + i * static_cast<int>(center_bytes);
+      }
+      return;
+    }
+    const int slot = slot_bytes(C, sizeof(TIn));
+    const int64_t r0 = static_cast<int64_t>(ch) * kRows;
+    const int64_t nr = K - r0 < kRows ? K - r0 : kRows;
+#pragma unroll
+    for (int i = 0; i < kCenters; ++i) {
+      head[i] = i * slot;
+      if (base + i >= HS) continue;
+      const int64_t s0 = (base + i) * center_bytes + r0 * row_bytes;
+      head[i] += stage_raw(raw + buf * rb + i * slot, gb, s0,
+                           s0 + nr * row_bytes, total);
+    }
   };
   int64_t base = static_cast<int64_t>(blockIdx.x) * kCenters;
-  int head = stage(0, base);                      // overlaps the weights
+  int ch = 0;
+  int head[kCenters];
+  stage(0, base, 0, head);                        // overlaps the weights
   mma::cp_async_commit();
   stage_weights(sw1, w1, c1p, C, F1);
   stage_weights(sw2, w2, F1, F1, F2);
@@ -300,19 +350,25 @@ sa_mlp_tc_kernel(const TIn* __restrict__ g, int HS, int K, int C,
   const int grp = warp / kWarpsPerCenter, wr = warp % kWarpsPerCenter;
   const int q = lane & 3;
   const int row0 = wr * kWarpRows + (lane >> 2);  // and row0 + 8
-  for (int it = 0; base < HS; ++it, base += step) {
-    int next_head = 0;
-    if (base + step < HS) next_head = stage((it + 1) & 1, base + step);
+  for (int it = 0; base < HS; ++it) {
+    // the next unit: this pair's next chunk, or the next pair's first
+    const bool last = !kChunked || ch + 1 == nch;
+    const int64_t next_base = last ? base + step : base;
+    const int next_ch = last ? 0 : ch + 1;
+    int next_head[kCenters] = {};
+    if (next_base < HS) stage((it + 1) & 1, next_base, next_ch, next_head);
     mma::cp_async_commit();
     mma::cp_async_wait<1>();
-    __syncthreads();  // this pair's rows (and the weights) are in place
+    __syncthreads();  // this chunk's rows (and the weights) are in place
 
     // layer 1's A fragments straight from the raw rows: row r, channel c
-    // of this warp's center, zero past K rows or C channels
-    const TIn* x = reinterpret_cast<const TIn*>(raw + (it & 1) * rb + head) +
-                   static_cast<int64_t>(grp) * K * C;
+    // of this warp's center, zero past the chunk's kr rows or C channels
+    const int kr =
+        !kChunked || K - ch * kRows < kRows ? K - ch * kRows : kRows;
+    const TIn* x =
+        reinterpret_cast<const TIn*>(raw + (it & 1) * rb + head[grp]);
     auto elem = [&](int r, int c) -> float {
-      return r < K && c < C ? __bfloat162float(to_bf16(x[r * C + c])) : 0.0f;
+      return r < kr && c < C ? __bfloat162float(to_bf16(x[r * C + c])) : 0.0f;
     };
     uint32_t h1[F1 / 16][4];
     {
@@ -355,9 +411,9 @@ sa_mlp_tc_kernel(const TIn* __restrict__ g, int HS, int K, int C,
       for (int j = 0; j < kSlice / 8; ++j) {
         const int col = n0 + j * 8 + 2 * q;
         const float c0 = __ldg(b3 + col), c1 = __ldg(b3 + col + 1);
-        float m0 = row0 < K ? fmaxf(acc[j][0] + c0, 0.0f) : -CUDART_INF_F;
-        float m1 = row0 < K ? fmaxf(acc[j][1] + c1, 0.0f) : -CUDART_INF_F;
-        if (row0 + 8 < K) {
+        float m0 = row0 < kr ? fmaxf(acc[j][0] + c0, 0.0f) : -CUDART_INF_F;
+        float m1 = row0 < kr ? fmaxf(acc[j][1] + c1, 0.0f) : -CUDART_INF_F;
+        if (row0 + 8 < kr) {
           m0 = fmaxf(m0, fmaxf(acc[j][2] + c0, 0.0f));
           m1 = fmaxf(m1, fmaxf(acc[j][3] + c1, 0.0f));
         }
@@ -367,13 +423,17 @@ sa_mlp_tc_kernel(const TIn* __restrict__ g, int HS, int K, int C,
           m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
         }
         if (lane < 4) {
+          if (kChunked && ch > 0) {  // the max of the earlier chunks
+            m0 = fmaxf(m0, wred[col]);
+            m1 = fmaxf(m1, wred[col + 1]);
+          }
           wred[col] = m0;
           wred[col + 1] = m1;
         }
       }
     }
     __syncthreads();  // red complete; the raw buffer is free again
-    for (int e = threadIdx.x; e < kCenters * F3; e += kThreads) {
+    for (int e = threadIdx.x; last && e < kCenters * F3; e += kThreads) {
       const int ci = e / F3, c = e % F3;
       if (base + ci >= HS) continue;
       const float* r = red + ci * kWarpsPerCenter * F3 + c;
@@ -382,19 +442,22 @@ sa_mlp_tc_kernel(const TIn* __restrict__ g, int HS, int K, int C,
       for (int w = 1; w < kWarpsPerCenter; ++w) m = fmaxf(m, r[w * F3]);
       out[(base + ci) * F3 + c] = m;
     }
-    head = next_head;
+#pragma unroll
+    for (int i = 0; i < kCenters; ++i) head[i] = next_head[i];
+    base = next_base;
+    ch = next_ch;
   }
 }
 
-template <int F1, int F2, int F3, typename TIn>
-int launch(const void* g, int HS, int K, int C, const void* const* p,
-           float* out, cudaStream_t stream) {
+template <int F1, int F2, int F3, typename TIn, bool kChunked>
+int launch_body(const void* g, int HS, int K, int C, const void* const* p,
+                float* out, cudaStream_t stream) {
   const size_t smem = smem_bytes<F1, F2, F3>(C, K, sizeof(TIn));
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(g) % 16 != 0) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
-  auto kernel = sa_mlp_tc_kernel<F1, F2, F3, TIn>;
+  auto kernel = sa_mlp_tc_kernel<F1, F2, F3, TIn, kChunked>;
   // once per instantiation, so that a launch under CUDA-graph capture makes
   // no other attribute call
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -422,6 +485,15 @@ int launch(const void* g, int HS, int K, int C, const void* const* p,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int F1, int F2, int F3, typename TIn>
+int launch(const void* g, int HS, int K, int C, const void* const* p,
+           float* out, cudaStream_t stream) {
+  return K > kRows
+             ? launch_body<F1, F2, F3, TIn, true>(g, HS, K, C, p, out, stream)
+             : launch_body<F1, F2, F3, TIn, false>(g, HS, K, C, p, out,
+                                                   stream);
+}
+
 }  // namespace tc
 
 template <int F1, int F2, int F3>
@@ -442,13 +514,13 @@ int dispatch(const void* g, int g_bf16, int bf16, int HS, int K, int C,
 // compute dtype bfloat16 when bf16 == 1 (a bf16 input needs bf16 compute).
 // Weights w_l (C_in, F_l) row-major: bfloat16 when bf16 == 1, else float32;
 // biases float32; out (HS, F3) float32.  Widths (F1, F2, F3) must be
-// (64, 64, 128) or (128, 128, 256); 1 <= K <= 64.
+// (64, 64, 128) or (128, 128, 256); K >= 1.
 extern "C" int sa_mlp_max(const void* g, int g_bf16, int bf16, int HS, int K,
                           int C, int F1, int F2, int F3, const void* w1,
                           const void* b1, const void* w2, const void* b2,
                           const void* w3, const void* b3, void* out,
                           void* stream) {
-  if (HS < 1 || K < 1 || K > kRows || C < 1) {
+  if (HS < 1 || K < 1 || C < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const void* p[6] = {w1, b1, w2, b2, w3, b3};

@@ -1,6 +1,7 @@
-"""Host-side (numpy) depth -> per-hand point-cloud sampling (a copy of the
-numpy path of ``pdfnet_tpu/data/cloud.py``; the native sampler and the
-normals/FPS variants come with the data slice).
+"""Host-side depth -> per-hand point-cloud sampling (port of
+``pdfnet_tpu/data/cloud.py`` without its normals and FPS variants): the
+numpy sampler, or the C++ one of ``pdfnet_tpu_torch.native`` when the caller
+asks for it (``native=True``, as the JAX dataset does by default).
 
 Mirrors the training-time sampling of the reference dataset
 (interhand.py:758-905): band filtering around the mean hand depth, a random
@@ -30,12 +31,20 @@ def backproject_np(depth: np.ndarray, K: np.ndarray) -> np.ndarray:
 
 def sample_hand_cloud(masked_depth: np.ndarray, K: np.ndarray,
                       num_points: int, rng: np.random.RandomState,
-                      min_pixels: int = 100, deterministic: bool = False
+                      min_pixels: int = 100, deterministic: bool = False,
+                      native: bool = False
                       ) -> Tuple[np.ndarray, np.ndarray, bool]:
     """Returns (choose (N,) flat pixel indices, cloud (N, 3) xyz, ok).
 
     ``deterministic``: the first ``num_points`` in-band pixels in sorted
-    order (or wrap padding) with no shuffle; ``rng`` is then unused."""
+    order (or wrap padding) with no shuffle; ``rng`` is then unused.
+    ``native`` (random mode only): the C++ sampler, seeded with one draw of
+    ``rng``; its subset is another uniform one than numpy's."""
+    if native and not deterministic:
+        from pdfnet_tpu_torch.native import sample_hand_cloud_native
+        return sample_hand_cloud_native(
+            masked_depth, K, num_points, seed=int(rng.randint(0, 2 ** 31)),
+            min_pixels=min_pixels, z_min=Z_MIN, z_max=Z_MAX, band=BAND)
     invalid = (np.zeros(num_points, np.int64),
                np.zeros((num_points, 3), np.float32), False)
     xyz = backproject_np(masked_depth, K).reshape(-1, 3)

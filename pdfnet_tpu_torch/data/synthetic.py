@@ -1,5 +1,5 @@
 """Synthetic RGB-D two-hand batches (port of ``pdfnet_tpu/data/synthetic.py``:
-``make_sample``, ``make_batch``).
+``make_sample``, ``make_batch``, ``SyntheticHandDataset``).
 
 Random MANO parameters give the ground-truth meshes and joints (the port's
 MANO on the CPU); depth comes from splatting the vertices through the
@@ -129,3 +129,30 @@ def make_batch(cfg: Config, batch_size: int,
                seed: int = 0) -> Dict[str, np.ndarray]:
     samples = [make_sample(cfg, seed * 10007 + i) for i in range(batch_size)]
     return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+
+
+class SyntheticHandDataset:
+    """Dataset of synthetic RGB-D samples (H2O-dict-compatible), the
+    ``--synthetic`` data of the CLI (port of JAX's ``SyntheticHandDataset``;
+    its clouds come from the numpy sampler, as ``make_sample`` takes them)."""
+
+    def __init__(self, cfg: Config, size: int = 512, seed: int = 0,
+                 train: bool = True):
+        self.cfg = cfg
+        self.size = size
+        self.seed = seed
+        self.train = train
+
+    def __len__(self):
+        return self.size
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        return make_sample(self.cfg, self.seed * 1000003 + idx)
+
+    def batches(self, batch_size: int, epoch: int = 0,
+                process_index: int = 0, process_count: int = 1):
+        from pdfnet_tpu_torch.data.loader import iter_batches
+        return iter_batches(
+            self.__getitem__, self.size, batch_size, shuffle=self.train,
+            seed=self.seed + epoch, pad_tail=not self.train,
+            process_index=process_index, process_count=process_count)

@@ -1,6 +1,7 @@
 """CenterNet target synthesis, host-side numpy (a copy of
-``pdfnet_tpu/data/targets.py`` without its native splat: the port's C++ host
-helpers come with the data slice).
+``pdfnet_tpu/data/targets.py``), with the C++ splat of
+``pdfnet_tpu_torch.native`` where the caller asks for it (``native=True``,
+as the JAX package does when its native library builds).
 
 References: gaussian_radius / draw_umich_gaussian (lib/utils/image.py:99-160),
 target assembly (lib/datasets/interhand.py:917-963).
@@ -42,8 +43,16 @@ def gaussian2d(shape: Tuple[int, int], sigma: float = 1.0) -> np.ndarray:
     return h
 
 
-def draw_gaussian(heatmap: np.ndarray, center, radius: int, k: float = 1.0):
-    """In-place max-composited gaussian splat (draw_umich_gaussian)."""
+def draw_gaussian(heatmap: np.ndarray, center, radius: int, k: float = 1.0,
+                  native: bool = False):
+    """In-place max-composited gaussian splat (draw_umich_gaussian);
+    ``native``: the C++ splat (float32 gaussian, k = 1)."""
+    if native:
+        if k != 1.0:
+            raise ValueError("draw_gaussian: the native splat takes k = 1")
+        from pdfnet_tpu_torch.native import draw_gaussian_native
+        draw_gaussian_native(heatmap, center, radius)
+        return heatmap
     diameter = 2 * radius + 1
     gaussian = gaussian2d((diameter, diameter), sigma=diameter / 6.0)
     x, y = int(center[0]), int(center[1])
@@ -61,9 +70,10 @@ def draw_gaussian(heatmap: np.ndarray, center, radius: int, k: float = 1.0):
 def centernet_targets(lms_left: Optional[np.ndarray],
                       lms_right: Optional[np.ndarray], valid_left: int,
                       valid_right: int, resolution: int = 384, down: int = 4,
-                      num_classes: int = 2) -> Dict[str, np.ndarray]:
+                      num_classes: int = 2, native: bool = False
+                      ) -> Dict[str, np.ndarray]:
     """hm / hms / wh / ind / off targets from (21, 2) full-resolution pixel
-    landmarks per hand (or None)."""
+    landmarks per hand (or None); ``native``: splat with the C++ helper."""
     hw = resolution // down
     hm = np.zeros((num_classes, hw, hw), np.float32)
     hm_lms = np.zeros((42, hw, hw), np.float32)
@@ -91,9 +101,10 @@ def centernet_targets(lms_left: Optional[np.ndarray],
         lms_down = lms / down
         for kk in range(21):
             draw_gaussian(hm_lms[hand * 21 + kk],
-                          lms_down[kk].astype(np.int32), radius)
+                          lms_down[kk].astype(np.int32), radius,
+                          native=native)
             off_lms[hand, kk * 2:kk * 2 + 2] = lms_down[kk] - ct_int
-        draw_gaussian(hm[hand], ct_int, radius)
+        draw_gaussian(hm[hand], ct_int, radius, native=native)
         wh[hand] = (w, h)
         ind[hand] = ct_int[1] * hw + ct_int[0]
         off_hm[hand] = ct / down - ct_int

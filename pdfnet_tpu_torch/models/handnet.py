@@ -31,6 +31,7 @@ from pdfnet_tpu_torch.models.layers import (BatchNorm, CenterHead, Dropout,
                                             L2Norm, StridedUpConv)
 from pdfnet_tpu_torch.ops.grouping import FUSED_METHODS, GENERIC_METHODS
 from pdfnet_tpu_torch.ops.pointcloud import depth_to_hand_clouds
+from pdfnet_tpu_torch.ops.sa import check_selection_shape
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -41,7 +42,9 @@ def compute_dtype(cfg: Config) -> torch.dtype:
 
 def check_config(cfg: Config) -> None:
     """Raise NotImplementedError naming each Config value the model would
-    read but whose JAX path the port does not have."""
+    read but whose JAX path the port does not have, and ValueError naming
+    the device limit a value exceeds (the selection kernel's shared memory,
+    ``ops.sa.check_selection_shape``; k <= N at each level)."""
     refused = []
     if cfg.knn_method not in FUSED_METHODS + GENERIC_METHODS:
         refused.append(f"knn_method={cfg.knn_method!r} (lax.approx_max_k has "
@@ -61,6 +64,17 @@ def check_config(cfg: Config) -> None:
     if refused:
         raise NotImplementedError("the port does not implement "
                                   + "; ".join(refused))
+    # the selection kernel's device limit (ops.sa.MAX_SMEM), at both
+    # set-abstraction levels: N points, S centers, k neighbours
+    levels = ((1, "sample_num", cfg.sample_num, cfg.sample_num_level1),
+              (2, "sample_num_level1", cfg.sample_num_level1,
+               cfg.sample_num_level2))
+    for level, field, n, s in levels:
+        try:
+            check_selection_shape(f"set abstraction level {level}", n, s,
+                                  cfg.knn_k)
+        except ValueError as e:
+            raise ValueError(f"{field}={n}, knn_k={cfg.knn_k}: {e}") from None
 
 
 class HandNet(nn.Module):

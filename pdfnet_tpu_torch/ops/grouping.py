@@ -41,8 +41,9 @@ from typing import Dict, Tuple
 import torch
 
 from pdfnet_tpu_torch.ops import cuda_build
-from pdfnet_tpu_torch.ops.sa import (_GROUP_SIGS, _check, _check_cuda,
-                                     _check_group_shapes, _f32, _stream,
+from pdfnet_tpu_torch.ops.sa import (_GROUP_SIGS, _check, _check_cuda, _f32,
+                                     _ptr, _stream, _workspace,
+                                     check_selection_shape,
                                      group_select_plain, knn, knn_plain)
 
 FUSED_METHODS = ("pallas_fused", "pallas_sa")
@@ -81,14 +82,15 @@ def knn_group_xyz(points: torch.Tensor, num_centers: int, k: int):
     H, N, C = points.shape
     if C != 3:
         raise ValueError(f"knn_group_xyz: points must be (H, N, 3), got {C}")
-    _check_group_shapes("knn_group_xyz", N, num_centers, k)
+    check_selection_shape("knn_group_xyz", N, num_centers, k)
     dev = points.device
     dist = torch.empty((H, num_centers, k), dtype=torch.float32, device=dev)
     idx = torch.empty((H, num_centers, k), dtype=torch.int32, device=dev)
     nbr = torch.empty((H, num_centers, k, 3), dtype=torch.float32, device=dev)
+    ws = _workspace(H, N, num_centers, k, dev)
     lib = cuda_build.library("sa_group.cu", _GROUP_SIGS)
     _check(lib.knn_group_xyz(points.data_ptr(), dist.data_ptr(),
-                             idx.data_ptr(), nbr.data_ptr(), H, N,
+                             idx.data_ptr(), nbr.data_ptr(), _ptr(ws), H, N,
                              num_centers, k, _stream()), "knn_group_xyz")
     launches["knn_group_xyz"] += 1
     return dist, idx, nbr
@@ -106,14 +108,15 @@ def group_feat(feat: torch.Tensor, num_centers: int, k: int, radius2: float):
     H, N, C = feat.shape
     if C < 3:
         raise ValueError(f"group_feat: needs xyz in the first 3 of C={C}")
-    _check_group_shapes("group_feat", N, num_centers, k)
+    check_selection_shape("group_feat", N, num_centers, k)
     dev = feat.device
     out = torch.empty((H, num_centers, k, C), dtype=feat.dtype, device=dev)
     idx = torch.empty((H, num_centers, k), dtype=torch.int32, device=dev)
     dist = torch.empty((H, num_centers, k), dtype=torch.float32, device=dev)
+    ws = _workspace(H, N, num_centers, k, dev)
     lib = cuda_build.library("sa_group.cu", _GROUP_SIGS)
     _check(lib.group_feat(feat.data_ptr(), out.data_ptr(), idx.data_ptr(),
-                          dist.data_ptr(), H, N, C, num_centers, k,
+                          dist.data_ptr(), _ptr(ws), H, N, C, num_centers, k,
                           _f32(radius2), int(feat.dtype == torch.bfloat16),
                           _stream()), "group_feat")
     launches["group_feat"] += 1

@@ -33,6 +33,10 @@ Semantics (the TPU kernels', which the tests hold the plain versions to):
 - MLP: per layer, product in the compute dtype with a float32 accumulator,
   then bias + ReLU in float32; max over the k neighbours.
 
+Limits: any k up to N, any N; the selection's shared memory (``MAX_SMEM``,
+``check_selection_shape``) is the one bound, and clouds wider than
+``WIDE_POINTS`` need a global workspace, which the wrappers allocate.
+
 Compute dtype: the model's (``Config.compute_dtype``).  float32 reproduces
 the TPU kernels' interpret mode, bfloat16 their on-chip mode.
 """
@@ -40,7 +44,7 @@ the TPU kernels' interpret mode, bfloat16 their on-chip mode.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,19 +58,47 @@ Folded = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # every entry point of csrc/sa_group.cu; ops.grouping binds the last two
-_GROUP_SIGS = {"sa_group_l1": [_P, _P, _I, _I, _I, _I, _F, _P],
-               "sa_group_l2": [_P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
-               "knn_group_xyz": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-               "group_feat": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
-                              _P],
-               "knn": [_P, _P, _P, _P, _I, _I, _I, _I, _P]}
+_GROUP_SIGS = {"sa_group_l1": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+               "sa_group_l2": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+               "knn_group_xyz": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+               "group_feat": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                              _I, _P],
+               "knn": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]}
 _MLP_SIGS = {"sa_mlp_max": [_P, _I, _I, _I, _I, _I, _I, _I, _I,
                             _P, _P, _P, _P, _P, _P, _P, _P]}
-MAX_POINTS = 1024        # csrc/sa_group.cu: N/32 distances per lane
-MAX_K_MLP = 64           # csrc/sa_mlp.cu: rows per block
+WIDE_POINTS = 1024       # csrc/sa_group.cu: wider clouds rank into a workspace
+MLP_CHUNK = 64           # csrc/sa_mlp.cu: rows a block takes at a time
 MLP_WIDTHS = ((64, 64, 128), (128, 128, 256))
-MAX_SMEM = 232448        # shared memory a block may use on the H100
+# The one device limit of the selection and the MLP kernels: the shared
+# memory a block may use on the H100 (227 KB).
+MAX_SMEM = 232448
+_SEL_WARPS = 8           # csrc/sa_group.cu kWarps
 _MLP_TC_CENTERS = 2      # csrc/sa_mlp.cu tc::kCenters
+
+
+def selection_smem_bytes(N: int, k: int) -> int:
+    """Shared memory of the selection kernel (``csrc/sa_group.cu``
+    ``smem_bytes``): per warp, k 8-byte composites, twice up to
+    ``WIDE_POINTS`` points, once for wider clouds, whose ranked composites
+    go to a global workspace; then the hand's xyz."""
+    lists = 2 if N <= WIDE_POINTS else 1
+    return lists * _SEL_WARPS * k * 8 + N * 3 * 4
+
+
+def check_selection_shape(name: str, N: int, S: int, k: int,
+                          separate_centers: bool = False) -> None:
+    """Raise ValueError, naming the limit, for a selection the kernel
+    cannot make: S centers among N points (any S with separate centers),
+    1 <= k <= N, and the shared memory of ``selection_smem_bytes`` within
+    ``MAX_SMEM`` (N = 4096 takes k <= 2864; k = N takes N <= 3058)."""
+    if S < 1 or (not separate_centers and S > N) or not 1 <= k <= N:
+        raise ValueError(f"{name}: needs 1 <= S <= N and 1 <= k <= N; got "
+                         f"N={N}, S={S}, k={k}")
+    need = selection_smem_bytes(N, k)
+    if need > MAX_SMEM:
+        raise ValueError(f"{name}: N={N}, k={k} needs {need} bytes of shared "
+                         f"memory a block, over the device's MAX_SMEM = "
+                         f"{MAX_SMEM}")
 
 
 def mlp_tc_smem_bytes(C: int, widths: Sequence[int], k: int,
@@ -74,25 +106,31 @@ def mlp_tc_smem_bytes(C: int, widths: Sequence[int], k: int,
     """Shared memory of ``sa_mlp_max``'s bf16 (tensor-core) body
     (``tc::smem_bytes``): the three bf16 weight matrices, rows padded by 8
     and the first's depth C rounded up to 16; two buffers of the raw rows
-    of a block's centers (k rows of C elements of ``esize`` bytes each, from
-    the 16-byte boundary below); float32 maxima of each 16-row warp."""
+    of a block's centers (k <= 64: k rows of C elements of ``esize`` bytes
+    each, from the 16-byte boundary below; larger k: a slot of 64 rows a
+    center, the chunk); float32 maxima of each 16-row warp."""
     F1, F2, F3 = widths
     c1p = -(-C // 16) * 16
-    raw = -(-(_MLP_TC_CENTERS * k * C * esize + 16) // 16) * 16
+    if k <= MLP_CHUNK:
+        raw = -(-(_MLP_TC_CENTERS * k * C * esize + 16) // 16) * 16
+    else:
+        raw = _MLP_TC_CENTERS * (-(-(MLP_CHUNK * C * esize + 16) // 16) * 16)
     return (2 * (c1p * (F1 + 8) + F1 * (F2 + 8) + F2 * (F3 + 8)) + 2 * raw
-            + 4 * _MLP_TC_CENTERS * (MAX_K_MLP // 16) * F3)
+            + 4 * _MLP_TC_CENTERS * (MLP_CHUNK // 16) * F3)
 
 
 def check_mlp_tc_shape(C: int, widths: Sequence[int], k: int,
                        esize: int) -> None:
     """Raise ValueError, naming the limit, where ``sa_mlp_max``'s bf16 body
-    cannot hold the weights and rows in shared memory (both eval levels
-    fit: float32 groups of C = 3 and bf16 groups of C = 131, k = 64)."""
+    cannot hold the weights and a chunk of rows in shared memory within
+    ``MAX_SMEM`` (both eval levels fit at every k: float32 groups of C = 3
+    and bf16 groups of C = 131)."""
     need = mlp_tc_smem_bytes(C, widths, k, esize)
     if need > MAX_SMEM:
         raise ValueError(f"sa_mlp_max: C={C}, k={k}, {esize}-byte groups, "
-                         f"widths {tuple(widths)} do not fit the bf16 body's "
-                         f"shared memory ({need} > {MAX_SMEM} bytes)")
+                         f"widths {tuple(widths)} need {need} bytes of "
+                         f"shared memory, over the device's MAX_SMEM = "
+                         f"{MAX_SMEM}")
 
 
 def reset_launches() -> None:
@@ -192,10 +230,18 @@ def mlp_max_plain(grouped: torch.Tensor, folded: Folded,
 
 # ---- kernel wrappers -------------------------------------------------------
 
-def _check_group_shapes(name, N, S, k):
-    if N > MAX_POINTS or not 1 <= S <= N or not 1 <= k <= N:
-        raise ValueError(f"{name}: needs N <= {MAX_POINTS}, S <= N, k <= N; "
-                         f"got N={N}, S={S}, k={k}")
+def _workspace(H: int, N: int, S: int, k: int,
+               device) -> Optional[torch.Tensor]:
+    """The selection's global workspace for wide clouds (N > WIDE_POINTS):
+    (H, S, k) 8-byte entries; a null pointer otherwise.  Freed when the
+    caller drops it, after the launch on the same stream."""
+    if N <= WIDE_POINTS:
+        return None
+    return torch.empty((H, S, k), dtype=torch.int64, device=device)
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def sa_group_l1(points: torch.Tensor, num_centers: int, k: int,
@@ -208,11 +254,12 @@ def sa_group_l1(points: torch.Tensor, num_centers: int, k: int,
     H, N, C = points.shape
     if C != 3:
         raise ValueError(f"sa_group_l1: points must be (H, N, 3), got {C}")
-    _check_group_shapes("sa_group_l1", N, num_centers, k)
+    check_selection_shape("sa_group_l1", N, num_centers, k)
     out = torch.empty((H, num_centers, k, 3), dtype=points.dtype,
                       device=points.device)
+    ws = _workspace(H, N, num_centers, k, points.device)
     lib = cuda_build.library("sa_group.cu", _GROUP_SIGS)
-    _check(lib.sa_group_l1(points.data_ptr(), out.data_ptr(), H, N,
+    _check(lib.sa_group_l1(points.data_ptr(), out.data_ptr(), _ptr(ws), H, N,
                            num_centers, k, _f32(radius2), _stream()),
            "sa_group_l1")
     launches["sa_group_l1"] += 1
@@ -230,11 +277,12 @@ def sa_group_l2(feat: torch.Tensor, num_centers: int, k: int,
     H, N, C = feat.shape
     if C < 3:
         raise ValueError(f"sa_group_l2: needs xyz in the first 3 of C={C}")
-    _check_group_shapes("sa_group_l2", N, num_centers, k)
+    check_selection_shape("sa_group_l2", N, num_centers, k)
     out = torch.empty((H, num_centers, k, C), dtype=feat.dtype,
                       device=feat.device)
+    ws = _workspace(H, N, num_centers, k, feat.device)
     lib = cuda_build.library("sa_group.cu", _GROUP_SIGS)
-    _check(lib.sa_group_l2(feat.data_ptr(), out.data_ptr(), H, N, C,
+    _check(lib.sa_group_l2(feat.data_ptr(), out.data_ptr(), _ptr(ws), H, N, C,
                            num_centers, k, _f32(radius2),
                            int(feat.dtype == torch.bfloat16), _stream()),
            "sa_group_l2")
@@ -254,10 +302,9 @@ def sa_mlp_max(grouped: torch.Tensor, folded: Folded,
                 (torch.float32, torch.bfloat16) if bf16 else (torch.float32,))
     H, S, k, C = grouped.shape
     widths = tuple(w.shape[1] for w, _ in folded)
-    if (widths not in MLP_WIDTHS or folded[0][0].shape[0] != C
-            or not 1 <= k <= MAX_K_MLP):
+    if widths not in MLP_WIDTHS or folded[0][0].shape[0] != C or k < 1:
         raise ValueError(f"sa_mlp_max: unsupported C={C}, widths={widths}, "
-                         f"k={k} (widths {MLP_WIDTHS}, k <= {MAX_K_MLP})")
+                         f"k={k} (widths {MLP_WIDTHS}, k >= 1)")
     if bf16:
         check_mlp_tc_shape(C, widths, k, grouped.element_size())
     # weights in the compute dtype, biases float32
@@ -285,24 +332,26 @@ def sa_mlp_max(grouped: torch.Tensor, folded: Folded,
 def knn(centers: torch.Tensor, points: torch.Tensor, k: int):
     """Exact k nearest points per center (``knn_pallas``): centers (H, S, 3)
     and points (H, N, 3) float32 -> (dist (H, S, k) float32 ascending, idx
-    (H, S, k) int32 (int64 from the plain version)).  Any S on the card."""
+    (H, S, k) int32 (int64 from the plain version)).  Any S on the card;
+    N and k as ``check_selection_shape`` takes them."""
     if centers.device.type == "cpu" and points.device.type == "cpu":
         return knn_select_plain(centers, points, k)
     for t in (centers, points):
         _check_cuda(t, "knn", (torch.float32,))
     H, S, C = centers.shape
     N = points.shape[1]
-    if (C != 3 or points.shape != (H, N, 3) or points.device != centers.device
-            or N > MAX_POINTS or not 1 <= k <= N):
+    if (C != 3 or points.shape != (H, N, 3)
+            or points.device != centers.device):
         raise ValueError(f"knn: needs centers (H, S, 3) and points (H, N, 3) "
-                         f"on one device, N <= {MAX_POINTS}, k <= N; got "
-                         f"{tuple(centers.shape)}, {tuple(points.shape)}, "
-                         f"k={k}")
+                         f"on one device; got {tuple(centers.shape)}, "
+                         f"{tuple(points.shape)}")
+    check_selection_shape("knn", N, S, k, separate_centers=True)
     dist = torch.empty((H, S, k), dtype=torch.float32, device=points.device)
     idx = torch.empty((H, S, k), dtype=torch.int32, device=points.device)
+    ws = _workspace(H, N, S, k, points.device)
     lib = cuda_build.library("sa_group.cu", _GROUP_SIGS)
     _check(lib.knn(centers.data_ptr(), points.data_ptr(), dist.data_ptr(),
-                   idx.data_ptr(), H, N, S, k, _stream()), "knn")
+                   idx.data_ptr(), _ptr(ws), H, N, S, k, _stream()), "knn")
     launches["knn"] += 1
     return dist, idx
 

@@ -56,9 +56,23 @@ def create_train_state(cfg: Config, model: HandNet) -> TrainState:
     return TrainState(model=model, optimizer=opt)
 
 
-def _to_device(batch: Batch, device: torch.device) -> Dict[str, torch.Tensor]:
+# keys of a dataset batch that only the host reads (the metrics' padding
+# mask and the submission's ids): never copied to the device
+HOST_KEYS = frozenset(("id", "frame_num", "pad_mask", "file_id"))
+# what the eval step reads: the model's inputs and eval_outputs' ground truth
+EVAL_KEYS = ("input", "choose", "cloud", "K_new", "verts_left_gt",
+             "verts_right_gt", "joints_left_gt", "joints_right_gt")
+
+
+def _to_device(batch: Batch, device: torch.device,
+               keys=None) -> Dict[str, torch.Tensor]:
+    """The batch's ``keys`` (every key but ``HOST_KEYS`` by default) as
+    tensors on ``device``."""
+    if keys is None:
+        keys = [k for k in batch if k not in HOST_KEYS]
     t = lambda v: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
-    return {k: t(v).to(device, non_blocking=True) for k, v in batch.items()}
+    return {k: t(batch[k]).to(device, non_blocking=True) for k in keys
+            if k in batch}
 
 
 def _slices(batch: Dict[str, torch.Tensor], n: int, what: str
@@ -199,7 +213,8 @@ def _guarded_update(opt: torch.optim.Optimizer, ok: torch.Tensor) -> None:
 def make_eval_step(cfg: Config, model: HandNet, consts: LossConsts
                    ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
     """A callable on the bench's batch dict (``bench.py:57-68``: input,
-    choose, cloud, K_new, ...; numpy arrays or tensors) that runs the model
+    choose, cloud, K_new, ...; numpy arrays or tensors; only ``EVAL_KEYS``
+    are moved to the device) that runs the model
     in eval mode under ``torch.inference_mode()`` on the model's device and
     returns ``eval_outputs``.  Returns before the device finishes, like any
     CUDA call; synchronize to time it."""
@@ -209,7 +224,7 @@ def make_eval_step(cfg: Config, model: HandNet, consts: LossConsts
         if model.training:
             model.eval()
         with torch.inference_mode():
-            b = _to_device(batch, device)
+            b = _to_device(batch, device, EVAL_KEYS)
             result, params, hand_dicts, other = model(
                 b["input"], b["choose"], b["cloud"])
             return eval_outputs(cfg, consts, result, params, hand_dicts,

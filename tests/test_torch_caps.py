@@ -1,0 +1,114 @@
+"""The port's set abstraction past the limits of its first kernels: clouds
+wider than the 1024 points a lane keeps in registers, and more neighbours
+than the 64 rows ``sa_mlp_max`` takes at a time.
+
+The plain versions (which ``chip_smoke.py`` holds the CUDA kernels to, bit
+for bit or within its MLP tolerance, at these widths on the card) against
+the TPU kernels in interpret mode at N = 2048 and k = 128, as
+``tests/test_torch_sa.py`` compares them at the main path's widths; and
+the limits that remain, refused by name when the model is built.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pdfnet_tpu.ops.pallas_knn import (knn_pallas, sa_level1_pallas,
+                                       sa_level2_pallas)
+
+from pdfnet_tpu_torch import build_model
+from pdfnet_tpu_torch.config import Config
+from pdfnet_tpu_torch.models.handnet import check_config
+from pdfnet_tpu_torch.ops import sa
+
+H, N, S, K = 2, 2048, 128, 128
+R1, R2 = 0.015, 0.04
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _folded(widths, cin, seed):
+    rng = np.random.RandomState(seed)
+    out = []
+    for f in widths:
+        out.append((rng.randn(cin, f).astype(np.float32) / np.sqrt(cin),
+                    rng.uniform(-0.3, 0.3, f).astype(np.float32)))
+        cin = f
+    return out
+
+
+def _torch(folded):
+    return [(torch.from_numpy(w), torch.from_numpy(b)) for w, b in folded]
+
+
+def test_knn_selection_matches_pallas_wide_with_ties():
+    """N = 2048 on a 1/32 grid (exact distances, so exact ties at the k-th
+    place), k = 128: the same indices and distances."""
+    pts = (np.random.RandomState(0).randint(-4, 5, (H, N, 3))
+           / 32.0).astype(np.float32)
+    dist_j, idx_j = knn_pallas(jnp.asarray(pts[:, :S]), jnp.asarray(pts),
+                               k=K, interpret=True)
+    dist_t, idx_t = sa.knn_plain(torch.from_numpy(pts), S, K)
+    d = np.asarray(dist_j)
+    assert (d[..., 1:] == d[..., :-1]).any(), "no ties planted"
+    np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))
+    np.testing.assert_array_equal(dist_t.numpy(), d)
+
+
+def test_sa_level1_matches_pallas_wide():
+    pts = np.random.RandomState(1).uniform(-0.1, 0.1, (H, N, 3)
+                                           ).astype(np.float32)
+    folded = _folded(sa.MLP_WIDTHS[0], 3, 2)
+    ref = sa_level1_pallas(jnp.asarray(pts), folded, k=K, num_centers=S,
+                           radius2=R1, interpret=True)
+    got = sa.sa_level1(torch.from_numpy(pts), _torch(folded), K, S, R1,
+                       torch.float32)
+    assert got.shape == (H, S, sa.MLP_WIDTHS[0][-1])
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def test_sa_level2_matches_pallas_wide():
+    rng = np.random.RandomState(3)
+    feat = np.concatenate([rng.uniform(-0.1, 0.1, (H, N, 3)),
+                           rng.randn(H, N, 128)], -1).astype(np.float32)
+    folded = _folded(sa.MLP_WIDTHS[1], 131, 4)
+    ref = sa_level2_pallas(jnp.asarray(feat), folded, k=K, num_centers=S,
+                           radius2=R2, interpret=True)
+    got = sa.sa_level2(torch.from_numpy(feat), _torch(folded), K, S, R2,
+                       torch.float32)
+    assert got.shape == (H, S, sa.MLP_WIDTHS[1][-1])
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("n,k", [(1024, 1024), (2048, 2048), (4096, 64),
+                                 (4096, 2864), (3058, 3058)])
+def test_selection_limit_takes(n, k):
+    """The shapes the selection kernel takes: k = N up to 3058, N = 4096 up
+    to k = 2864 (shared memory within MAX_SMEM)."""
+    sa.check_selection_shape("knn", n, min(512, n), k)
+    assert sa.selection_smem_bytes(n, k) <= sa.MAX_SMEM
+
+
+@pytest.mark.parametrize("n,k", [(4096, 2865), (3059, 3059), (20000, 64)])
+def test_selection_limit_refuses_by_name(n, k):
+    with pytest.raises(ValueError, match="MAX_SMEM"):
+        sa.check_selection_shape("knn", n, 512, k)
+
+
+@pytest.mark.parametrize("field,value", [("sample_num", 2048),
+                                         ("sample_num", 4096),
+                                         ("knn_k", 128), ("knn_k", 512)])
+def test_config_takes_wide_clouds_and_many_neighbours(field, value):
+    check_config(Config().replace(**{field: value}))
+
+
+@pytest.mark.parametrize("kw,name", [
+    (dict(sample_num=4096, sample_num_level1=4096, knn_k=4096), "sample_num"),
+    (dict(knn_k=513), "sample_num_level1"),
+    (dict(sample_num_level1=2048), "sample_num=1024")])
+def test_build_model_refuses_the_remaining_limits(kw, name):
+    """A selection the kernel cannot make (k above N at a level, a level's
+    shared memory over MAX_SMEM) is refused by name when the model is built,
+    never inside a step."""
+    with pytest.raises(ValueError, match=name):
+        build_model(Config().replace(**kw), device="cpu")

@@ -1,6 +1,9 @@
 """Package hygiene of the PyTorch port: it imports nothing of JAX or of the
-JAX package, its ``Config`` mirrors ``pdfnet_tpu.config.Config``, and
-``build_model`` refuses every Config value whose JAX path it lacks."""
+JAX package, its ``Config`` mirrors ``pdfnet_tpu.config.Config``, and every
+entry point refuses by name the values whose JAX path it lacks
+(``build_model``, the dataset, the trainer, the CLI's multi-process flags)
+and the device limits that remain (the selection kernel's shared
+memory)."""
 
 import dataclasses
 import os
@@ -73,9 +76,13 @@ def test_config_mirrors_jax_config():
 
 
 def test_new_modules_are_walked():
-    """The serving path's modules are among those imported above."""
+    """The serving path's and the CLI path's modules are among those
+    imported above."""
     mods = _modules()
-    for m in ("ops.pointcloud", "ops.trunk", "ops.grouping"):
+    for m in ("ops.pointcloud", "ops.trunk", "ops.grouping", "native",
+              "data.augment", "data.h2o", "data.loader", "data.prefetch",
+              "data.synthetic", "train.metrics", "train.checkpoint",
+              "train.trainer", "utils.vis", "utils.profiler", "cli.main"):
         assert f"pdfnet_tpu_torch.{m}" in mods, m
 
 
@@ -89,6 +96,48 @@ def test_build_model_refuses_what_the_port_lacks(field, value):
     cfg = PortConfig().replace(**{field: value})
     with pytest.raises(NotImplementedError, match=f"{field}="):
         build_model(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [("sample_strategy", "FPS"),
+                                         ("input_feature_num", 6)])
+def test_dataset_refuses_what_the_port_lacks(field, value, tmp_path):
+    """Before it looks for the annotation cache."""
+    from pdfnet_tpu_torch.data.h2o import H2ODataset
+    cfg = PortConfig(cache_path=str(tmp_path)).replace(**{field: value})
+    with pytest.raises(NotImplementedError, match=f"{field}="):
+        H2ODataset(cfg, "train")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("arch", "csp_50"), ("arch", "csp_18"), ("zero1_opt_sharding", True),
+    ("image_summary", True), ("photometric_loss", True)])
+def test_trainer_refuses_what_the_port_lacks(field, value):
+    """Before it builds a model."""
+    from pdfnet_tpu_torch.train.trainer import Trainer
+    cfg = PortConfig().replace(**{field: value})
+    with pytest.raises(NotImplementedError, match=f"{field}="):
+        Trainer(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("flag,value", [("--coordinator", "localhost:1"),
+                                        ("--num_processes", "2"),
+                                        ("--process_id", "1")])
+def test_cli_refuses_multi_process_flags(flag, value):
+    from pdfnet_tpu_torch.cli.main import build_argparser, check_args
+    args = build_argparser().parse_args([flag, value])
+    with pytest.raises(NotImplementedError, match=flag):
+        check_args(args)
+
+
+@pytest.mark.parametrize("kw,name", [
+    (dict(sample_num=3072, sample_num_level1=3072, knn_k=3072),
+     "sample_num=3072"),
+    (dict(knn_k=600), "sample_num_level1=512")])
+def test_build_model_refuses_the_remaining_limits(kw, name):
+    """k = N = 3072 needs more shared memory a block than the card has
+    (``ops.sa.MAX_SMEM``); k above a level's points cannot be selected."""
+    with pytest.raises(ValueError, match=name):
+        build_model(PortConfig().replace(**kw), device="cpu")
 
 
 @pytest.mark.parametrize("knn_method", ["topk", "pallas", "pallas_fused",
@@ -106,7 +155,9 @@ def test_model_honours_knn_method_and_fused_trunk(knn_method):
 
 @pytest.mark.parametrize("entry", ["pdfnet_tpu_torch.models.handnet:build_model",
                                    "pdfnet_tpu_torch.train.loss:load_loss_consts",
-                                   "pdfnet_tpu_torch.mano.layer:load_mano_consts"])
+                                   "pdfnet_tpu_torch.mano.layer:load_mano_consts",
+                                   "pdfnet_tpu_torch.train.trainer:Trainer",
+                                   "pdfnet_tpu_torch.train.trainer:fit"])
 def test_entry_points_default_to_the_card(entry):
     """Every public loader or model constructor that takes a device runs on
     the card unless the caller asks for the CPU."""

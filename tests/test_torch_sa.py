@@ -259,15 +259,19 @@ def test_pointnet_plus_matches_jax(monkeypatch):
 
 @pytest.mark.parametrize("level", [1, 2])
 def test_mlp_tc_shape_guard(level):
-    """Both eval levels' groups (float32 at level 1, bf16 at level 2, k=64)
-    fit the bf16 body's shared memory; a first layer far wider than the
-    eval path's is refused by name."""
+    """Both eval levels' groups (float32 at level 1, bf16 at level 2) fit
+    the bf16 body's shared memory at k = 64 and at any larger k, whose rows
+    the body takes in chunks of 64; a first layer far wider than the eval
+    path's is refused by name."""
     C, esize = ((3, 4), (131, 2))[level - 1]
     widths = sa.MLP_WIDTHS[level - 1]
-    sa.check_mlp_tc_shape(C, widths, sa.MAX_K_MLP, esize)
-    assert sa.mlp_tc_smem_bytes(C, widths, sa.MAX_K_MLP, esize) <= sa.MAX_SMEM
-    with pytest.raises(ValueError, match="shared memory"):
-        sa.check_mlp_tc_shape(600, widths, sa.MAX_K_MLP, esize)
+    for k in (sa.MLP_CHUNK, 128, 1024, 4096):
+        sa.check_mlp_tc_shape(C, widths, k, esize)
+        assert sa.mlp_tc_smem_bytes(C, widths, k, esize) <= sa.MAX_SMEM
+    assert (sa.mlp_tc_smem_bytes(C, widths, 4096, esize)
+            == sa.mlp_tc_smem_bytes(C, widths, 128, esize))
+    with pytest.raises(ValueError, match="MAX_SMEM"):
+        sa.check_mlp_tc_shape(600, widths, sa.MLP_CHUNK, esize)
 
 
 # ---- the cases a threshold selection stresses ------------------------------

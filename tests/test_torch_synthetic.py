@@ -215,3 +215,25 @@ def test_make_batch_matches_jax(batches, key):
 def test_make_sample_refuses_what_the_port_lacks():
     with pytest.raises(NotImplementedError):
         port.make_batch(port.Config(**SMALL, input_feature_num=6), 1)
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_synthetic_dataset_batches_match_jax(train):
+    """``SyntheticHandDataset`` (the CLI's ``--synthetic`` data) gives
+    JAX's batches in JAX's order: the train split shuffled with its tail
+    dropped, the eval split in order with a padded, masked tail."""
+    from pdfnet_tpu.data.synthetic import SyntheticHandDataset as JaxDataset
+    from pdfnet_tpu_torch.data.synthetic import SyntheticHandDataset
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(native, "available", lambda: False)
+        want = list(JaxDataset(JaxConfig(**SMALL), size=5, seed=2,
+                               train=train).batches(2, epoch=1))
+    got = list(SyntheticHandDataset(port.Config(**SMALL), size=5, seed=2,
+                                    train=train).batches(2, epoch=1))
+    assert len(got) == len(want) == (2 if train else 3)
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        for key in w:
+            np.testing.assert_allclose(g[key], w[key], **BATCH_TOL)
+            if key in EXACT_KEYS or key == "pad_mask":
+                np.testing.assert_array_equal(g[key], w[key])
