@@ -54,7 +54,26 @@ Phases, each of which fails the run:
    checkpoint: the score files, the kernels' launches per train step and
    eval batch, the checkpoint round trip bit for bit, a float32 test-mode
    evaluation on the card against the CPU, and the train step, data wait
-   and eval rate through the loader.
+   and eval rate through the loader;
+8. the serving CLI (``pdfnet_tpu_torch.cli.infer``) in process at the
+   default ``Config`` (bf16, ``pallas_sa``) at batch 8 on 20 color/depth
+   pairs at 1280x720 that it writes (the CLI phase's MANO hands) and a
+   checkpoint of seeded weights with split masks: names, shapes,
+   finiteness, the 126-float JSON, the kernels' launches a batch
+   (``sa_group_l1`` 1, ``sa_group_l2`` 1, ``sa_mlp_max`` 2); then the
+   steady-state frames/s through the host preprocessing, from 5 runs of
+   the CLI on 320 frames (those 20, each copied 16 times: 40 whole
+   batches), each run's rate and their spread;
+9. the demo CLI (``pdfnet_tpu_torch.cli.demo``) on 2 of those frames at
+   384x384: its three JPGs a frame and the launches a frame; then
+   ``render_two_hands`` of the drawn hands on the card against the CPU
+   (the mask differs on at most 0.1 % of the pixels, depth and rgb within
+   1e-4 where both hit) and its ms a call;
+10. ``python -m pdfnet_tpu_torch.bench`` at ``bench.py``'s defaults in its
+   three modes (eval; ``--self_contained --knn pallas --fused_trunk``;
+   ``--train``), each a subprocess: exit 0, one JSON line with the mode's
+   metric and a positive value, which the script prints, and the mode's
+   kernels launched once a timed call.
 
 TF32 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``), so every float32 number is true
@@ -781,20 +800,10 @@ def trunk_check(gen, dev, record) -> None:
 # ---- phase 4: the eval step ------------------------------------------------
 
 def bench_batch(B, res, n, seed=0):
-    """The bench's batch layout (bench.py:57-68)."""
-    import numpy as np
-    rng = np.random.RandomState(seed)
-    return {
-        "input": rng.randn(B, res, res, 3).astype(np.float32),
-        "choose": rng.randint(0, res * res, (B, 2, n)).astype(np.int32),
-        "cloud": rng.uniform(-0.1, 0.1, (B, 2, n, 3)).astype(np.float32),
-        "depth": rng.uniform(0.3, 0.8, (B, res, res)).astype(np.float32),
-        "K_new": np.tile(np.array([[[480.0, 0, res / 2], [0, 480.0, res / 2],
-                                    [0, 0, 1]]], np.float32), (B, 1, 1)),
-        "valid": np.ones((B, 2), np.float32),
-        "lms_left_gt": np.zeros((B, 21, 2), np.float32),
-        "lms_right_gt": np.zeros((B, 21, 2), np.float32),
-    }
+    """The bench's batch layout (bench.py:57-68), from the port's bench
+    entry."""
+    from pdfnet_tpu_torch.bench import random_batch
+    return random_batch(B, res, n, seed)
 
 
 def jitter_bn_(model, seed: int) -> None:
@@ -1340,69 +1349,86 @@ CLI_K = ((636.6593, 0.0, 635.2839), (0.0, 636.2520, 366.8740), (0, 0, 1))
 CLI_TRAIN, CLI_TEST = 24, 10
 
 
-def write_h2o_tree(root: str, seed: int = 0) -> None:
-    """An H2O-format tree (``{split}.pkl`` annotation caches, 16-bit depth in
-    mm, rgb, and masks with the right hand in G and the left in R) of
-    CLI_TRAIN + CLI_TEST records: two MANO hands with seeded coefficients
-    ~0.55 m from the camera, their vertices splatted 5x5 into the frames."""
-    import pickle
-
-    import cv2
+def draw_hands(rng, consts):
+    """One 1280x720 frame of two MANO hands with seeded coefficients ~0.55 m
+    from the camera (CLI_K), their vertices splatted 5x5 into the frames:
+    (rgb, 16-bit depth in mm, mask with the right hand in G and the left in
+    R, 124 MANO coefficients, joints (42, 3), landmarks (42, 2), vertices
+    (2, 778, 3) [left, right])."""
     import numpy as np
     import torch
     from pdfnet_tpu_torch.mano import layer as mano
 
-    rng = np.random.RandomState(seed)
     H, W = CLI_FRAME
     K = np.array(CLI_K, np.float32)
-    consts = {s: mano.load_mano_consts(s, device="cpu")
-              for s in ("left", "right")}
+    coeff = np.zeros(124, np.float32)
+    joints, lms, verts = [], [], []
+    img = np.full((H, W, 3), 60, np.uint8)
+    depth = np.zeros((H, W), np.uint16)
+    mask = np.zeros((H, W, 3), np.uint8)
+    for h, (side, xo) in enumerate((("left", -0.09), ("right", 0.06))):
+        o = 62 * h
+        coeff[o] = 1.0
+        coeff[o + 1:o + 4] = [xo + rng.uniform(-0.02, 0.02),
+                              rng.uniform(-0.03, 0.03),
+                              0.55 + rng.uniform(-0.05, 0.05)]
+        coeff[o + 4:o + 7] = rng.uniform(-0.3, 0.3, 3)
+        coeff[o + 7:o + 52] = rng.uniform(-0.2, 0.2, 45)
+        coeff[o + 52:o + 62] = rng.uniform(-0.5, 0.5, 10)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a[None]))
+        with torch.no_grad():
+            v, j = mano.mano_forward(
+                consts[side], t(coeff[o + 4:o + 7]),
+                t(coeff[o + 7:o + 52]), t(coeff[o + 52:o + 62]),
+                trans=t(coeff[o + 1:o + 4]))
+        v, j = v[0].numpy(), j[0].numpy()
+        joints.append(j)
+        verts.append(v)
+        pj = j @ K.T
+        lms.append(pj[:, :2] / pj[:, 2:])
+        pv = v @ K.T
+        uv = (pv[:, :2] / pv[:, 2:]).astype(int)
+        ok = ((uv[:, 0] >= 2) & (uv[:, 0] < W - 2) & (uv[:, 1] >= 2)
+              & (uv[:, 1] < H - 2))
+        for (x, y), z in zip(uv[ok], v[ok, 2]):
+            depth[y - 2:y + 3, x - 2:x + 3] = int(z * 1000)
+            mask[y - 2:y + 3, x - 2:x + 3, 1 if side == "right" else 2] = 255
+            img[y - 2:y + 3, x - 2:x + 3] = (180, 140, 120)
+    return (img, depth, mask, coeff, np.concatenate(joints),
+            np.concatenate(lms), np.stack(verts))
+
+
+def mano_consts():
+    from pdfnet_tpu_torch.mano import layer as mano
+    return {s: mano.load_mano_consts(s, device="cpu")
+            for s in ("left", "right")}
+
+
+def write_h2o_tree(root: str, seed: int = 0) -> None:
+    """An H2O-format tree (``{split}.pkl`` annotation caches, 16-bit depth in
+    mm, rgb, and masks) of CLI_TRAIN + CLI_TEST records of ``draw_hands``."""
+    import pickle
+
+    import cv2
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    K = np.array(CLI_K, np.float32)
+    consts = mano_consts()
     records = []
     for i in range(CLI_TRAIN + CLI_TEST):
         rel = f"subject1/h1/{i % 3}/cam4"
         for sub in ("rgb", "depth", "mask"):
             os.makedirs(os.path.join(root, "H2O", rel, sub), exist_ok=True)
-        coeff = np.zeros(124, np.float32)
-        joints, lms = [], []
-        img = np.full((H, W, 3), 60, np.uint8)
-        depth = np.zeros((H, W), np.uint16)
-        mask = np.zeros((H, W, 3), np.uint8)
-        for h, (side, xo) in enumerate((("left", -0.09), ("right", 0.06))):
-            o = 62 * h
-            coeff[o] = 1.0
-            coeff[o + 1:o + 4] = [xo + rng.uniform(-0.02, 0.02),
-                                  rng.uniform(-0.03, 0.03),
-                                  0.55 + rng.uniform(-0.05, 0.05)]
-            coeff[o + 4:o + 7] = rng.uniform(-0.3, 0.3, 3)
-            coeff[o + 7:o + 52] = rng.uniform(-0.2, 0.2, 45)
-            coeff[o + 52:o + 62] = rng.uniform(-0.5, 0.5, 10)
-            t = lambda a: torch.from_numpy(np.ascontiguousarray(a[None]))
-            with torch.no_grad():
-                v, j = mano.mano_forward(
-                    consts[side], t(coeff[o + 4:o + 7]),
-                    t(coeff[o + 7:o + 52]), t(coeff[o + 52:o + 62]),
-                    trans=t(coeff[o + 1:o + 4]))
-            v, j = v[0].numpy(), j[0].numpy()
-            joints.append(j)
-            pj = j @ K.T
-            lms.append(pj[:, :2] / pj[:, 2:])
-            pv = v @ K.T
-            uv = (pv[:, :2] / pv[:, 2:]).astype(int)
-            ok = ((uv[:, 0] >= 2) & (uv[:, 0] < W - 2) & (uv[:, 1] >= 2)
-                  & (uv[:, 1] < H - 2))
-            for (x, y), z in zip(uv[ok], v[ok, 2]):
-                depth[y - 2:y + 3, x - 2:x + 3] = int(z * 1000)
-                mask[y - 2:y + 3, x - 2:x + 3, 1 if side == "right" else 2] = 255
-                img[y - 2:y + 3, x - 2:x + 3] = (180, 140, 120)
+        img, depth, mask, coeff, joints, lms, _ = draw_hands(rng, consts)
         name = f"{i:06d}.png"
         cv2.imwrite(os.path.join(root, "H2O", rel, "rgb", name), img)
         cv2.imwrite(os.path.join(root, "H2O", rel, "depth", name), depth)
         cv2.imwrite(os.path.join(root, "H2O", rel, "mask", name), mask)
         records.append({"imgpath": f"{rel}/rgb/{name}",
                         "depthpath": f"{rel}/depth/{name}",
-                        "mano_coeff": coeff,
-                        "lms": np.concatenate(lms).astype(np.float32),
-                        "joints": np.concatenate(joints).astype(np.float32),
+                        "mano_coeff": coeff, "lms": lms.astype(np.float32),
+                        "joints": joints.astype(np.float32),
                         "K": K, "id": 1 + i % 3})
     for split, recs in (("train", records[:CLI_TRAIN]),
                         ("test", records[CLI_TRAIN:])):
@@ -1539,6 +1565,300 @@ def cli_phase(card, dev) -> None:
     shutil.rmtree(work, ignore_errors=True)
 
 
+# ---- phases 8-10: the serving and demo CLIs, the renderer, the bench -------
+
+SERVE_FRAMES = 20
+RATE_FRAMES = 320         # 40 batches of BATCH: no padded tail
+RATE_RUNS = 5
+SERVE_LAUNCHES = {"sa_group_l1": 1, "sa_group_l2": 1, "sa_mlp_max": 2}
+RENDER_TOL = 1e-4         # depth and rgb, card against CPU, where both hit
+RENDER_MASK_SHARE = 1e-3  # of the pixels whose mask may differ
+# (flags, metric, kernels launched once a call of the timed function)
+BENCH_MODES = (
+    ([], "rgbd_inference_frames_per_sec_per_chip", SERVE_LAUNCHES),
+    (["--self_contained", "--knn", "pallas", "--fused_trunk"],
+     "rgbd_selfcontained_frames_per_sec_per_chip",
+     {"knn": 2, "fused_bottleneck_s1": 8}),
+    (["--train"], "train_samples_per_sec_per_chip",
+     {"knn_group_xyz": 1, "group_feat": 1}))
+
+
+def write_frames(root: str, n: int, seed: int = 1):
+    """``color/NNNNNN.png`` and ``depth/NNNNNN.png`` (16-bit mm) of n
+    ``draw_hands`` frames, the layout the serving CLIs read; returns the
+    hands' vertices (n, 2, 778, 3)."""
+    import cv2
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    consts = mano_consts()
+    for sub in ("color", "depth"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    verts = []
+    for i in range(n):
+        img, depth, _, _, _, _, v = draw_hands(rng, consts)
+        cv2.imwrite(os.path.join(root, "color", f"{i:06d}.png"), img)
+        cv2.imwrite(os.path.join(root, "depth", f"{i:06d}.png"), depth)
+        verts.append(v)
+    return np.stack(verts)
+
+
+def serving_checkpoint(frames: str, path: str, dev) -> str:
+    """A checkpoint of the default model (seeded random weights, jittered
+    BatchNorm statistics) with the mask head split on the frames' crops
+    (``split_masks_``), so that the CLIs' clouds come from half-image
+    masks."""
+    import glob
+
+    import numpy as np
+    import torch
+    import pdfnet_tpu_torch as port
+    from pdfnet_tpu_torch.cli import demo, infer
+    from pdfnet_tpu_torch.train.checkpoint import save_checkpoint
+
+    cfg = port.Config()
+    model = port.build_model(cfg, device=dev)
+    jitter_bn_(model, seed=4)
+    mean, std = (np.asarray(v, np.float32) for v in (cfg.mean, cfg.std))
+    files = sorted(glob.glob(os.path.join(frames, "color", "*.png")))[:BATCH]
+    img = np.stack([infer._preprocess(f, cfg.default_resolution, mean, std,
+                                      demo.demo_intrinsics())[0]
+                    for f in files])
+    split_masks_(model, torch.from_numpy(img).to(dev))
+    return save_checkpoint(path, port.create_train_state(cfg, model), 0)
+
+
+def run_captured(fn, argv):
+    """fn(argv) with its stdout captured; returns (result, the text), the
+    text echoed without the progress counts."""
+    import contextlib
+    import io
+    import re
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(argv)
+    text = buf.getvalue().replace("\r", "\n")
+    for line in text.splitlines():
+        if line.strip() and not re.fullmatch(r"\d+/\d+", line.strip()):
+            print(f"  | {line}")
+    return result, text
+
+
+def serve_launches(batches: int):
+    """The serving CLI's launch counts since the last reset, checked
+    against SERVE_LAUNCHES a batch."""
+    from pdfnet_tpu_torch.ops import grouping, sa, trunk
+    launches = {**sa.launches, **grouping.launches, **trunk.launches}
+    want = {n: v * batches for n, v in SERVE_LAUNCHES.items()}
+    check(all(launches[n] == want.get(n, 0) for n in launches),
+          f"serve cli: expected launches {want}, got {launches}")
+    return launches
+
+
+def serve_cli_phase(card, dev, work: str, ckpt: str) -> None:
+    """The serving CLI (``cli.infer.main``) in process at the default
+    ``Config`` (bf16, ``pallas_sa``) at batch 8 on SERVE_FRAMES frames of
+    1280x720: names, shapes, finiteness, the 126-float JSON and the
+    kernels' launches a batch."""
+    import numpy as np
+    from pdfnet_tpu_torch.cli.infer import main as infer_main
+    from pdfnet_tpu_torch.ops import grouping, sa, trunk
+
+    frames, out = os.path.join(work, "frames"), os.path.join(work, "preds")
+    batches = -(-SERVE_FRAMES // BATCH)
+    # the serving CLI's path, through the user's entry point
+    for m in (sa, grouping, trunk):
+        m.reset_launches()
+    t0 = time.perf_counter()
+    _, text = run_captured(infer_main, ["--input", frames, "--batch",
+                                        str(BATCH), "--json", "--ckpt",
+                                        ckpt, "--out", out])
+    wall = time.perf_counter() - t0
+    launches = serve_launches(batches)
+    print(f"serve cli [bf16, batch {BATCH}, {SERVE_FRAMES} frames of "
+          f"{CLI_FRAME[1]}x{CLI_FRAME[0]}, {batches} batches]: kernel "
+          f"launches {json.dumps(launches)}; {wall:.1f} s")
+    preds = np.load(os.path.join(out, "predictions.npz"))
+    names = [f"{i:06d}" for i in range(SERVE_FRAMES)]
+    check(list(preds["names"]) == names, f"serve cli: names "
+          f"{list(preds['names'])}")
+    shapes = {"joints_abs": (21, 3), "joints_rel": (21, 3),
+              "verts_abs": (778, 3), "lms2d": (21, 2)}
+    for key, shape in shapes.items():
+        check(preds[key].shape == (SERVE_FRAMES, 2) + shape
+              and np.isfinite(preds[key]).all(),
+              f"serve cli: {key} {preds[key].shape} or not finite")
+    with open(os.path.join(out, "hand_poses.json")) as f:
+        sub = json.load(f)
+    check(list(sub) == names and all(len(v) == 126 and np.isfinite(v).all()
+                                     for v in sub.values()),
+          "serve cli: hand_poses.json is not 126 finite floats a frame")
+    check(sum("steady-state" in line for line in text.splitlines()) == 1,
+          "serve cli: no steady-state rate printed")
+    print(f"serve cli: predictions and hand_poses.json ({SERVE_FRAMES} "
+          f"frames) written")
+
+
+def serve_rate_phase(card, work: str, ckpt: str) -> None:
+    """The serving CLI's steady-state frames/s (its own timer, from the end
+    of the first batch; PNG reads and warps included) on RATE_FRAMES
+    frames, the SERVE_FRAMES written ones copied in turn, RATE_RUNS runs
+    in process; prints each run's rate, the median and the spread."""
+    import shutil
+
+    import numpy as np
+    from pdfnet_tpu_torch.cli.infer import main as infer_main
+    from pdfnet_tpu_torch.ops import grouping, sa, trunk
+
+    frames, rate = os.path.join(work, "frames"), os.path.join(work, "rate")
+    for sub in ("color", "depth"):
+        os.makedirs(os.path.join(rate, sub), exist_ok=True)
+        for i in range(RATE_FRAMES):
+            shutil.copyfile(
+                os.path.join(frames, sub, f"{i % SERVE_FRAMES:06d}.png"),
+                os.path.join(rate, sub, f"{i:06d}.png"))
+    rates = []
+    for r in range(RATE_RUNS):
+        for m in (sa, grouping, trunk):
+            m.reset_launches()
+        _, text = run_captured(infer_main, [
+            "--input", rate, "--batch", str(BATCH), "--ckpt", ckpt,
+            "--out", os.path.join(work, "rate_preds")])
+        serve_launches(RATE_FRAMES // BATCH)
+        line = [s for s in text.splitlines() if "steady-state" in s]
+        check(len(line) == 1, "serve cli: no steady-state rate printed")
+        rates.append(float(line[0].split()[1]))
+    med = float(np.median(rates))
+    print(f"serve cli steady-state frames/s [bf16, batch {BATCH}, "
+          f"{RATE_FRAMES} frames of {CLI_FRAME[1]}x{CLI_FRAME[0]}, "
+          f"{RATE_FRAMES // BATCH - 1} timed batches, host preprocessing "
+          f"included], {RATE_RUNS} runs: {rates}; median {med}, spread "
+          f"(max - min) / median {(max(rates) - min(rates)) / med:.4f} "
+          f"({card})")
+    shutil.rmtree(rate, ignore_errors=True)
+
+
+def demo_cli_phase(card, dev, work: str, ckpt: str, verts) -> None:
+    """The demo CLI (``cli.demo.main``) on 2 frames at 384x384: its three
+    JPGs a frame and the kernels' launches a frame; then
+    ``render_two_hands`` of the drawn hands on the card against the CPU,
+    and its ms a call on the card."""
+    import cv2
+    import numpy as np
+    import torch
+    from pdfnet_tpu_torch import Config, assets
+    from pdfnet_tpu_torch.cli.demo import crop_rgbd, load_rgbd
+    from pdfnet_tpu_torch.cli.demo import main as demo_main
+    from pdfnet_tpu_torch.ops import grouping, sa, trunk
+    from pdfnet_tpu_torch.render import render_two_hands
+
+    frames, out = os.path.join(work, "frames"), os.path.join(work, "demo")
+    res = Config().default_resolution
+    for m in (sa, grouping, trunk):
+        m.reset_launches()
+    t0 = time.perf_counter()
+    run_captured(demo_main, ["--input", frames, "--limit", "2", "--ckpt",
+                             ckpt, "--out", out])
+    wall = time.perf_counter() - t0
+    launches = {**sa.launches, **grouping.launches, **trunk.launches}
+    print(f"demo cli [bf16, 2 frames at {res}x{res}]: kernel launches "
+          f"{json.dumps(launches)}; {wall:.1f} s")
+    want = {n: 2 * v for n, v in SERVE_LAUNCHES.items()}
+    check(all(launches[n] == want.get(n, 0) for n in launches),
+          f"demo cli: expected launches {want}, got {launches}")
+    for i in range(2):
+        for kind in ("mask_lr", "bones_lr", "render"):
+            img = cv2.imread(os.path.join(out, "color",
+                                          f"{kind}_{i:06d}.jpg"))
+            check(img is not None and img.shape == (res, res, 3),
+                  f"demo cli: {kind}_{i:06d}.jpg missing or not "
+                  f"({res}, {res}, 3)")
+    print("demo cli: mask, bones and render JPGs of 2 frames written")
+
+    # the renderer: the drawn hands under the crop's intrinsics
+    image, depth = load_rgbd(os.path.join(frames, "color", "000000.png"))
+    K = crop_rgbd(image, depth, np.array(CLI_K, np.float32), res)[2]
+    faces = (assets.load_mano("left").faces, assets.load_mano("right").faces)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        v = torch.from_numpy(verts[0]).to(d)
+        outs.append([t.cpu() for t in render_two_hands(
+            v[0], v[1], torch.from_numpy(K).to(d), *faces, res, res)])
+    (rgb, mask, zbuf), (rgb_c, mask_c, zbuf_c) = outs
+    both = (mask > 0) & (mask_c > 0)
+    share = (mask != mask_c).float().mean().item()
+    err_z = (zbuf - zbuf_c)[both].abs().max().item()
+    err_rgb = (rgb - rgb_c)[both].abs().max().item()
+    check(mask_c.sum() > 0.01 * res * res, "render: the hands cover under "
+          "1 % of the image")
+    check(share <= RENDER_MASK_SHARE and err_z <= RENDER_TOL
+          and err_rgb <= RENDER_TOL,
+          f"render: card against CPU: mask differs on {share:.2e} of the "
+          f"pixels, depth {err_z:.2e}, rgb {err_rgb:.2e}")
+    v = torch.from_numpy(verts[0]).to(dev)
+    Kd = torch.from_numpy(K).to(dev)
+    ms = time_ms(lambda: render_two_hands(v[0], v[1], Kd, *faces, res, res),
+                 iters=10)
+    print(f"render_two_hands [{res}x{res}, 3076 faces] card agrees with cpu: "
+          f"mask differs on {share:.2e} of the pixels (<= "
+          f"{RENDER_MASK_SHARE}), depth {err_z:.2e}, rgb {err_rgb:.2e} "
+          f"(<= {RENDER_TOL}) where both hit; {ms:.3f} ms a call ({card})")
+
+
+def bench_phase(card) -> None:
+    """``python -m pdfnet_tpu_torch.bench`` in its three modes at
+    ``bench.py``'s defaults, each a subprocess: exit 0, one JSON line with
+    the mode's metric, a positive value and a null ``vs_baseline``, and
+    the kernels of the mode launched once a timed call (warm-up
+    included)."""
+    for flags, metric, per_call in BENCH_MODES:
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "pdfnet_tpu_torch.bench"]
+                             + flags, cwd=REPO, capture_output=True,
+                             text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(run.returncode == 0, f"bench {flags}: exit {run.returncode}\n"
+              f"{run.stderr[-4000:]}")
+        lines = run.stdout.strip().splitlines()
+        check(len(lines) == 1, f"bench {flags}: stdout is not one line: "
+              f"{run.stdout!r}")
+        got = json.loads(lines[0])
+        check(list(got) == ["metric", "value", "unit", "vs_baseline"]
+              and got["metric"] == metric and got["value"] > 0
+              and got["vs_baseline"] is None,
+              f"bench {flags}: {lines[0]}")
+        launches = json.loads([line for line in run.stderr.splitlines()
+                               if line.startswith("launches ")][-1][9:])
+        calls = 3 + 60                       # bench.py's warmup + iters
+        want = {n: v * calls for n, v in per_call.items()}
+        check(all(launches[n] == want.get(n, 0) for n in launches),
+              f"bench {flags}: expected launches {want}, got {launches}")
+        print(f"bench {' '.join(flags) or '(eval)'} ({wall:.1f} s, launches "
+              f"{json.dumps(want)}; {card}):")
+        print(lines[0])
+
+
+def cli_serving_phases(card, dev) -> None:
+    """Phases 8-10 on one set of frames and one checkpoint under
+    chiprun_out/serve/; the frames and the checkpoint are deleted after,
+    the predictions and the JPGs kept."""
+    import shutil
+    work = os.path.join(OUT_DIR, "serve")
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    verts = write_frames(os.path.join(work, "frames"), SERVE_FRAMES)
+    ckpt = serving_checkpoint(os.path.join(work, "frames"),
+                              os.path.join(work, "ckpt"), dev)
+    print(f"serve: {SERVE_FRAMES} color/depth pairs at {CLI_FRAME[1]}x"
+          f"{CLI_FRAME[0]} and a checkpoint written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    serve_cli_phase(card, dev, work, ckpt)
+    serve_rate_phase(card, work, ckpt)
+    demo_cli_phase(card, dev, work, ckpt, verts)
+    for sub in ("frames", "ckpt", "rate_preds"):
+        shutil.rmtree(os.path.join(work, sub), ignore_errors=True)
+    bench_phase(card)
+
+
 def profile(fn, label: str, steps: int = 5) -> None:
     """Device time by kernel over a few steps of ``fn``: the table goes to
     chiprun_out/profile_{label}.txt, a summary line (device busy share, the
@@ -1634,6 +1954,7 @@ def main() -> int:
     launches.update({n: v for n, v in serve_phase(args, card, cfg, dev).items()
                      if n in SERVE_KERNELS or n == "fused_bottleneck_s2"})
     cli_phase(card, dev)
+    cli_serving_phases(card, dev)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

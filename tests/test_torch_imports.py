@@ -76,13 +76,16 @@ def test_config_mirrors_jax_config():
 
 
 def test_new_modules_are_walked():
-    """The serving path's and the CLI path's modules are among those
-    imported above."""
+    """The serving path's, the CLI paths' and the bench entry's modules are
+    among those imported above."""
     mods = _modules()
     for m in ("ops.pointcloud", "ops.trunk", "ops.grouping", "native",
               "data.augment", "data.h2o", "data.loader", "data.prefetch",
               "data.synthetic", "train.metrics", "train.checkpoint",
-              "train.trainer", "utils.vis", "utils.profiler", "cli.main"):
+              "train.trainer", "utils.vis", "utils.profiler", "cli.main",
+              "utils.eval_kit", "utils.convert_torch", "render",
+              "render.lighting", "render.rasterizer", "cli.demo",
+              "cli.infer", "bench"):
         assert f"pdfnet_tpu_torch.{m}" in mods, m
 
 
@@ -157,7 +160,8 @@ def test_model_honours_knn_method_and_fused_trunk(knn_method):
                                    "pdfnet_tpu_torch.train.loss:load_loss_consts",
                                    "pdfnet_tpu_torch.mano.layer:load_mano_consts",
                                    "pdfnet_tpu_torch.train.trainer:Trainer",
-                                   "pdfnet_tpu_torch.train.trainer:fit"])
+                                   "pdfnet_tpu_torch.train.trainer:fit",
+                                   "pdfnet_tpu_torch.bench:main"])
 def test_entry_points_default_to_the_card(entry):
     """Every public loader or model constructor that takes a device runs on
     the card unless the caller asks for the CPU."""
