@@ -73,7 +73,22 @@ Phases, each of which fails the run:
    three modes (eval; ``--self_contained --knn pallas --fused_trunk``;
    ``--train``), each a subprocess: exit 0, one JSON line with the mode's
    metric and a positive value, which the script prints, and the mode's
-   kernels launched once a timed call.
+   kernels launched once a timed call;
+11. (run after phase 6; its CLI part inside phase 7, on that tree)
+   ``Config(sample_strategy="FPS", input_feature_num=6)`` at full width:
+   the serving step (``infer_rgbd``: FPS and normals on the card) at batch
+   8, the batched eval step on ``make_batch``'s host clouds (host FPS and
+   normals) and 3 train steps, each launching ``knn`` and ``group_feat``
+   once a step and no other kernel, each with a float32 step on the card
+   against the CPU (the CPU replaying the card's neighbour selections);
+   the serving frames/s at batch 8 and 32 beside the default config's;
+   device FPS on the card against the CPU bit for bit (random and
+   wrap-padded clouds), the normals at the chosen pixels of near and far
+   hands against the CPU where the det guard is taken, against the float64
+   solve where it is not, with the share of points whose guard takes the
+   other branch, and each one's ms a call; the CLI with ``--sample_strategy FPS
+   --input_feature_num 6``: ``--mode train`` 2 steps, then ``--mode
+   test``.
 
 TF32 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``), so every float32 number is true
@@ -1030,19 +1045,24 @@ def train_check_phase(cfg, dev):
     The two sides compute the clouds' float32 xyz with other summation
     orders, so a neighbour on a tie or on the ball's radius can be selected
     on one side and not on the other, which moves its cotangent to another
-    row.  Likewise a point-MLP activation within rounding of 0 can pass its
-    ReLU on one side only; when that point wins the max-pool for some
-    channels, it carries their whole gradient (seen: 9.6e-3 of a leaf's
-    largest entry, in some runs of the same inputs, as the card's float32
-    sums vary in their last bit between runs).  The CPU step therefore
+    row.  Likewise an activation within rounding of 0 can pass its ReLU (or
+    take a leaky ReLU's other slope) on one side only: in a point MLP, when
+    that point wins the max-pool for some channels, it carries their whole
+    gradient (seen: 9.6e-3 of a leaf's largest entry, in some runs of the
+    same inputs, as the card's float32 sums vary in their last bit between
+    runs); with six-channel clouds, flips outside the point MLPs (in the
+    SFT, FPN and head layers) moved a mesh-decoder embedding's gradient by
+    5.3e-3 of its largest entry.  The CPU step therefore
     replays the card's neighbour selection (the kernels' own agreement is
-    checked bit for bit in the kernel phase) and the ReLU decisions of the
-    point MLPs, and the flips are counted and printed."""
+    checked bit for bit in the kernel phase) and every ReLU and leaky-ReLU
+    decision in the model's modules (the encoder, PointNet++, layers,
+    ResNet and mesh decoder), and the flips are counted and printed."""
     import types
     import torch
     import torch.nn.functional as F
     import pdfnet_tpu_torch as port
-    from pdfnet_tpu_torch.models import pointnet
+    from pdfnet_tpu_torch.models import (encoder, gcn_decoder, layers,
+                                         pointnet, resnet)
     from pdfnet_tpu_torch.ops import grouping, sa
 
     c = cfg.replace(compute_dtype="float32", freeze_bn_stats=True,
@@ -1051,19 +1071,26 @@ def train_check_phase(cfg, dev):
     chosen, flips = [], [0, 0]
     relu_masks, relu_flips = [], [0, 0]
 
-    def record_relu(x):
+    def record_relu(x, slope=0.0):
         relu_masks.append((x > 0).cpu())
-        return F.relu(x)
+        return F.leaky_relu(x, slope) if slope else F.relu(x)
 
-    def replay_relu(x):
+    def replay_relu(x, slope=0.0):
         card = relu_masks.pop(0)
         relu_flips[0] += int(((x > 0) != card).sum())
         relu_flips[1] += card.numel()
-        return torch.where(card, x, 0.0)
+        return torch.where(card, x, x * slope)
+
+    def functional(act):
+        """torch.nn.functional with relu and leaky_relu through ``act``."""
+        ns = {n: getattr(F, n) for n in dir(F) if not n.startswith("_")}
+        ns.update(relu=act, leaky_relu=act)
+        return types.SimpleNamespace(**ns)
+    act_modules = (encoder, gcn_decoder, layers, pointnet, resnet)
     wrappers = {"knn_group_xyz": lambda out: (out[0], out[1]),
-                "group_feat": lambda out: (out[2], out[1])}
+                "group_feat": lambda out: (out[2], out[1]),
+                "knn": lambda out: (out[0], out[1])}
     originals = {n: getattr(grouping, n) for n in wrappers}
-    knn_plain = sa.knn_plain
 
     def recording(name):
         def run(*a, **k):
@@ -1073,7 +1100,10 @@ def train_check_phase(cfg, dev):
         return run
 
     def replay(xyz, num_centers, k):
-        dist, idx = knn_plain(xyz, num_centers, k)
+        return replay_knn(xyz[:, :num_centers], xyz, k)
+
+    def replay_knn(centers, points, k):
+        dist, idx = sa.knn_select_plain(centers, points, k)
         card_dist, card_idx = chosen.pop(0)
         flips[0] += int((idx != card_idx.long()).sum())
         flips[1] += idx.numel()
@@ -1086,12 +1116,14 @@ def train_check_phase(cfg, dev):
         step = port.make_train_step(c, model, port.load_loss_consts(d))
         if i == 0:
             patches = [(grouping, n, recording(n)) for n in wrappers]
-            patches.append((pointnet, "F",
-                            types.SimpleNamespace(relu=record_relu)))
+            patches += [(m, "F", functional(record_relu))
+                        for m in act_modules]
         else:
             patches = [(grouping, "knn_plain", replay),
                        (sa, "knn_plain", replay),
-                       (pointnet, "F", types.SimpleNamespace(relu=replay_relu))]
+                       (grouping, "knn", replay_knn)]
+            patches += [(m, "F", functional(replay_relu))
+                        for m in act_modules]
         saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
         try:
             for m, n, fn in patches:
@@ -1105,13 +1137,13 @@ def train_check_phase(cfg, dev):
                      {n: p.grad.cpu() for n, p in model.named_parameters()
                       if p.grad is not None}))
     check(not chosen and not relu_masks,
-          "the CPU step grouped or ran a point-MLP ReLU fewer times than the "
+          "the CPU step grouped or ran an activation fewer times than the "
           "card's")
     print(f"train step [f32, batch 2]: the CPU's own neighbour selection "
           f"differs from the card's in {flips[0]} of {flips[1]} slots "
-          f"(float32 ties and radius crossings), its point-MLP ReLU "
-          f"decisions in {relu_flips[0]} of {relu_flips[1]}; the CPU step "
-          f"replays the card's")
+          f"(float32 ties and radius crossings), its ReLU decisions in "
+          f"{relu_flips[0]} of {relu_flips[1]}; the CPU step replays the "
+          f"card's")
     (got_s, got_g), (want_s, want_g) = runs
     worst = 0.0
     for key, w in want_s.items():
@@ -1256,6 +1288,92 @@ def serve_phase(args, card, cfg, dev):
     return launches
 
 
+class SelectionReplay:
+    """The card's neighbour selections, recorded in call order and replayed
+    by the CPU's step: ``grouping.knn`` (both levels under
+    ``knn_method="pallas"``, level 1 of six-channel clouds) and
+    ``grouping.group_feat`` (level 2 of six-channel clouds at eval).  A
+    neighbour on a tie or on the ball radius can fall on either side when
+    the two devices' float32 xyz differ in the last bit; the kernels' own
+    agreement with their plain versions is checked bit for bit in the
+    kernel phase.  ``flips`` counts the slots where the CPU's own selection
+    differs."""
+
+    def __init__(self):
+        self.knn, self.feat = [], []
+        self.flips = dict(neighbours=0, slots=0)
+
+    def _count(self, own_idx, card_idx):
+        self.flips["neighbours"] += int((own_idx != card_idx.long()).sum())
+        self.flips["slots"] += own_idx.numel()
+
+    def patches(self, card: bool):
+        from pdfnet_tpu_torch.ops import grouping, sa
+        if card:
+            knn, group_feat = grouping.knn, grouping.group_feat
+
+            def record_knn(*a, **k):
+                out = knn(*a, **k)
+                self.knn.append(tuple(t.cpu() for t in out))
+                return out
+
+            def record_feat(*a, **k):
+                out = group_feat(*a, **k)
+                self.feat.append((out[2].cpu(), out[1].cpu()))
+                return out
+            return [(grouping, "knn", record_knn),
+                    (grouping, "group_feat", record_feat)]
+        knn_plain = sa.knn_plain
+
+        def replay_knn(centers, points, k):
+            own = sa.knn_select_plain(centers, points, k)
+            card_dist, card_idx = self.knn.pop(0)
+            self._count(own[1], card_idx)
+            return card_dist, card_idx.long()
+
+        def replay_feat(xyz, num_centers, k):
+            own = knn_plain(xyz, num_centers, k)
+            card_dist, card_idx = self.feat.pop(0)
+            self._count(own[1], card_idx)
+            return card_dist, card_idx.long()
+        return [(grouping, "knn", replay_knn), (sa, "knn_plain", replay_feat)]
+
+    def done(self) -> bool:
+        return not self.knn and not self.feat
+
+
+def run_patched(patches, fn):
+    """fn() with each (module, name, value) of ``patches`` set, restored
+    after."""
+    saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
+    try:
+        for m, n, v in patches:
+            setattr(m, n, v)
+        return fn()
+    finally:
+        for m, n, v in saved:
+            setattr(m, n, v)
+
+
+def compare_steps(label, got, want) -> None:
+    """Every output of a float32 step on the card within STEP_TOL of the
+    CPU's, relative to each output's magnitude."""
+    import torch
+    worst = 0.0
+    for key in want:
+        g, w = got[key], want[key]
+        check(bool(torch.isfinite(g).all()), f"{label}: {key} not finite")
+        scale = max(1.0, w.abs().max().item())
+        err = (g - w).abs().max().item()
+        worst = max(worst, err / scale)
+        print(f"{label} card vs cpu {key}: max_abs_err {err:.3e} (scale "
+              f"{scale:.3e})")
+        check(torch.allclose(g, w, atol=STEP_TOL * scale, rtol=STEP_TOL),
+              f"{label}: the card differs from the CPU in {key}")
+    print(f"{label} card agrees with cpu: worst error / scale {worst:.3e} "
+          f"<= {STEP_TOL}")
+
+
 def serve_check_phase(scfg, state, batch, dev) -> None:
     """One float32 serving step on the card against the same step on the
     CPU at batch 1, with deterministic point sampling.
@@ -1263,27 +1381,21 @@ def serve_check_phase(scfg, state, batch, dev) -> None:
     A predicted-mask pixel at 0.5, or a depth at a band edge, can fall on
     either side on the two devices, and a neighbour on a tie or on the ball
     radius likewise; the CPU step therefore replays the card's clouds and
-    neighbour selections (the kernels' own agreement is checked bit for bit
-    in the kernel phase), and the flips are counted and printed."""
+    neighbour selections (``SelectionReplay``), and the flips are counted
+    and printed."""
     import torch
     import pdfnet_tpu_torch as port
     import pdfnet_tpu_torch.models.handnet as handnet
-    from pdfnet_tpu_torch.ops import grouping, sa
 
     c = scfg.replace(compute_dtype="float32", sample_deterministic=True)
     b1 = {k: batch[k][:1] for k in SERVE_INPUTS}
-    clouds, chosen = [], []
-    flips = dict(mask=0, choose=0, neighbours=0, slots=0)
-    build_clouds, knn = handnet.depth_to_hand_clouds, grouping.knn
+    clouds, replay = [], SelectionReplay()
+    flips = dict(mask=0, choose=0)
+    build_clouds = handnet.depth_to_hand_clouds
 
     def record_clouds(depth, mask, *a, **k):
         out = build_clouds(depth, mask, *a, **k)
         clouds.append((mask.cpu(), *(t.cpu() for t in out)))
-        return out
-
-    def record_knn(*a, **k):
-        out = knn(*a, **k)
-        chosen.append(tuple(t.cpu() for t in out))
         return out
 
     def replay_clouds(depth, mask, *a, **k):
@@ -1293,51 +1405,343 @@ def serve_check_phase(scfg, state, batch, dev) -> None:
         flips["choose"] += int((own[0] != card[0]).sum())
         return tuple(card)
 
-    def replay_knn(centers, points, k):
-        own = sa.knn_select_plain(centers, points, k)
-        card_dist, card_idx = chosen.pop(0)
-        flips["neighbours"] += int((own[1] != card_idx.long()).sum())
-        flips["slots"] += own[1].numel()
-        return card_dist, card_idx.long()
-
     runs = []
     for i, d in enumerate((dev, torch.device("cpu"))):
         model = port.HandNet(c).to(d).eval()
         model.load_state_dict({k: v.to(d) for k, v in state.items()})
-        patches = ([(handnet, "depth_to_hand_clouds", record_clouds),
-                    (grouping, "knn", record_knn)] if i == 0 else
-                   [(handnet, "depth_to_hand_clouds", replay_clouds),
-                    (grouping, "knn", replay_knn)])
-        saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
-        try:
-            for m, n, fn in patches:
-                setattr(m, n, fn)
-            step = make_serve_step(c, model, port.load_loss_consts(d), None)
-            out, _ = step({k: v.to(d) for k, v in b1.items()})
-        finally:
-            for m, n, fn in saved:
-                setattr(m, n, fn)
+        patches = [(handnet, "depth_to_hand_clouds",
+                    record_clouds if i == 0 else replay_clouds)]
+        step = make_serve_step(c, model, port.load_loss_consts(d), None)
+        out, _ = run_patched(patches + replay.patches(card=i == 0),
+                             lambda: step({k: v.to(d)
+                                           for k, v in b1.items()}))
         runs.append({k: v.cpu() for k, v in out.items()})
-    check(not clouds and not chosen,
+    check(not clouds and replay.done(),
           "the CPU step built clouds or selected fewer times than the card's")
     print(f"serve step [f32, batch 1]: the CPU's own masks differ from the "
           f"card's in {flips['mask']} pixels, its clouds in "
           f"{flips['choose']} chosen pixels, its neighbour selection in "
-          f"{flips['neighbours']} of {flips['slots']} slots; the CPU step "
-          f"replays the card's")
-    got, want = runs
-    worst = 0.0
-    for key in want:
-        g, w = got[key], want[key]
-        scale = max(1.0, w.abs().max().item())
-        err = (g - w).abs().max().item()
-        worst = max(worst, err / scale)
-        print(f"serve step [f32, batch 1] card vs cpu {key}: max_abs_err "
-              f"{err:.3e} (scale {scale:.3e})")
-        check(torch.allclose(g, w, atol=STEP_TOL * scale, rtol=STEP_TOL),
-              f"f32 serve step on the card differs from the CPU in {key}")
-    print(f"serve step [f32] card agrees with cpu: worst error / scale "
-          f"{worst:.3e} <= {STEP_TOL}")
+          f"{replay.flips['neighbours']} of {replay.flips['slots']} slots; "
+          f"the CPU step replays the card's")
+    compare_steps("serve step [f32, batch 1]", *runs)
+
+
+# ---- phase 11 (run after phase 6): FPS and surface normals ----------------
+
+NORMALS = dict(sample_strategy="FPS", input_feature_num=6)
+# one step of a six-channel path: level 1 the generic kNN + exact gather
+# (``knn``), level 2 the fused feature grouping (``group_feat``); the fused
+# SA kernels group xyz clouds only
+NORMALS_LAUNCHES = {"knn": 1, "group_feat": 1}
+# the device normals where the det guard is taken on both devices, card
+# against CPU: a normalized sum of 25 points (float32 sums in another order)
+NORMAL_TOL_GUARDED = 1e-5
+# where both solve the 3x3 plane fit, each device against the float64 solve
+# of the same neighbourhoods, within NORMAL_SOLVE_ULPS * cond(A^T A) units
+# of float32 rounding: forming A^T A (sums of 25 products) and the LU solve
+# with partial pivoting each err by a few units relative to its inputs, and
+# the solution by up to cond times that (near-degenerate neighbourhoods at
+# a hand's border reach cond ~1e5)
+NORMAL_SOLVE_ULPS = 64
+
+
+def port_launches():
+    from pdfnet_tpu_torch.ops import grouping, sa, trunk
+    return {**sa.launches, **grouping.launches, **trunk.launches}
+
+
+def reset_port_launches() -> None:
+    from pdfnet_tpu_torch.ops import grouping, sa, trunk
+    for m in (sa, grouping, trunk):
+        m.reset_launches()
+
+
+def check_launches(label: str, want) -> dict:
+    """The launches since the last reset are exactly ``want`` (0 for every
+    kernel not named)."""
+    launches = port_launches()
+    print(f"{label} kernel launches: {json.dumps(launches)}")
+    check(all(launches[n] == want.get(n, 0) for n in launches),
+          f"{label}: expected launches {want}, got {launches}")
+    return launches
+
+
+def check_outputs(label: str, out, B: int) -> None:
+    import torch
+    shapes = {"verts_pred": (B, 2, 778, 3), "joints_pred": (B, 2, 21, 3),
+              "verts_pred_off": (B, 2, 778, 3),
+              "joints_pred_off": (B, 2, 21, 3), "lms21_pred": (B, 2, 21, 2)}
+    for key, shape in shapes.items():
+        check(tuple(out[key].shape) == shape,
+              f"{label}: {key} {tuple(out[key].shape)}")
+        check(bool(torch.isfinite(out[key]).all()),
+              f"{label}: {key} not finite")
+
+
+def fps_normals_alone(card, ncfg, host, dev) -> None:
+    """Device FPS on the card against the CPU, bit for bit, on random and
+    wrap-padded clouds at the serving path's shapes; the device normals on
+    the card against the CPU at the same pixels, with the share of points
+    whose det guard takes the other branch; each one's ms a call at batch
+    8 (eager: both are chains of small launches, as the model runs
+    them)."""
+    import torch
+    from pdfnet_tpu_torch.ops import fps as fps_ops
+    from pdfnet_tpu_torch.ops.geometry import NORMAL_DET_MIN, plane_normals
+    from pdfnet_tpu_torch.ops.pointcloud import (depth_to_hand_clouds,
+                                                 neighbourhoods)
+
+    B, N = BATCH, ncfg.sample_num
+    n1, n2 = ncfg.sample_num_level1, ncfg.sample_num_level2
+    gen = torch.Generator().manual_seed(11)
+    xyz = torch.randn((B, 2, N, 3), generator=gen) * 0.03
+    xyz[..., 2] += 0.5
+    wrapped = xyz.clone().reshape(2 * B, N, 3)
+    for h in range(2 * B):            # 40..1000 distinct points, repeated
+        k = 40 + 60 * h
+        wrapped[h] = wrapped[h, :k].repeat(-(-N // k), 1)[:N]
+    for label, pts in (("random", xyz), ("wrap-padded",
+                                         wrapped.reshape(B, 2, N, 3))):
+        want = fps_ops.fps_two_level_order(pts, n1, n2)
+        got = fps_ops.fps_two_level_order(pts.to(dev), n1, n2).cpu()
+        check(torch.equal(got, want), f"FPS [{label}]: the card's order "
+              f"differs from the CPU's in {int((got != want).sum())} places")
+        print(f"FPS [{label} clouds, {2 * B} hands of {N}, levels {n1}/{n2}]"
+              f": the card's permutations equal the CPU's bit for bit")
+
+    def fit(depth, choose, K_inv):
+        nb = neighbourhoods(depth, choose, K_inv)
+        ata = torch.einsum("...ki,...kj->...ij", nb, nb)
+        return nb, torch.linalg.det(ata), plane_normals(nb)
+
+    res = ncfg.default_resolution
+    rnd = bench_batch(B, res, N, seed=5)
+    # at 0.55 m every point takes the det guard; three times as far most
+    # points solve the plane fit (det grows as z**6)
+    cases = (("synthetic hands, 0.55 m", host["depth"], host["mask"],
+              host["K_new"], host["valid"]),
+             ("synthetic hands, 1.65 m", host["depth"] * 3, host["mask"],
+              host["K_new"], host["valid"]),
+             ("bench's random depth", rnd["depth"],
+              (rnd["input"][..., :2] > 0).astype("float32"), rnd["K_new"],
+              rnd["valid"]))
+    for label, depth, mask, K, valid in cases:
+        depth, mask, K, valid = (torch.from_numpy(a[:B]) for a in
+                                 (depth, mask, K, valid))
+        # mask channels are [right, left]; the cloud builder takes [left,
+        # right]
+        choose, _, ok = depth_to_hand_clouds(depth, mask.flip(-1), K, valid,
+                                             num_points=N, deterministic=True)
+        dm = torch.where((mask.flip(-1) > 0.5).permute(0, 3, 1, 2),
+                         torch.where((depth > 0.2) & (depth < 2.5), depth,
+                                     0.0)[:, None], 0.0)
+        K_inv = torch.linalg.inv(K)[:, None]
+        nb, det_c, n_c = fit(dm, choose, K_inv)
+        _, det_g, n_g = (t.cpu() for t in fit(dm.to(dev), choose.to(dev),
+                                               K_inv.to(dev)))
+        sel = ok[..., None].expand_as(det_c)
+        guard_c, guard_g = det_c < NORMAL_DET_MIN, det_g < NORMAL_DET_MIN
+        flips = (guard_c != guard_g) & sel
+        both_g, both_s = guard_c & guard_g & sel, ~guard_c & ~guard_g & sel
+        err_g = ((n_g - n_c).abs().amax(-1)[both_g].max().item()
+                 if both_g.any() else 0.0)
+        n_pts, n_flip = int(sel.sum()), int(flips.sum())
+        print(f"normals [{label}, {n_pts} points]: det guard taken at "
+              f"{float(guard_c[sel].float().mean()):.4f} of them; the card "
+              f"takes the other branch than the CPU at {n_flip} "
+              f"({n_flip / max(1, n_pts):.2e} of the points); card vs cpu "
+              f"where both guard: max error {err_g:.3e} (<= "
+              f"{NORMAL_TOL_GUARDED})")
+        check(err_g <= NORMAL_TOL_GUARDED,
+              f"normals [{label}]: the card differs from the CPU")
+        check(n_flip <= 0.01 * n_pts,
+              f"normals [{label}]: {n_flip} det-guard flips")
+        if both_s.any():
+            nb64 = nb[both_s].double()
+            ata64 = torch.einsum("nki,nkj->nij", nb64, nb64)
+            n64 = torch.linalg.solve(ata64, nb64.sum(1)[..., None])[..., 0]
+            n64 = n64 / n64.norm(dim=-1, keepdim=True)
+            cond = torch.linalg.cond(ata64)
+            bound = NORMAL_SOLVE_ULPS * cond * 2.0 ** -24
+            errs = {side: (n[both_s].double() - n64).abs().amax(-1)
+                    for side, n in (("card", n_g), ("cpu", n_c))}
+            ratio = {s: float((e / bound).max()) for s, e in errs.items()}
+            print(f"normals [{label}]: {int(both_s.sum())} points solve on "
+                  f"both; cond(A^T A) median {float(cond.median()):.3e}, max "
+                  f"{float(cond.max()):.3e}; max error against the float64 "
+                  f"solve: card {float(errs['card'].max()):.3e}, cpu "
+                  f"{float(errs['cpu'].max()):.3e}; worst error / "
+                  f"({NORMAL_SOLVE_ULPS} cond u): card {ratio['card']:.3e}, "
+                  f"cpu {ratio['cpu']:.3e} (<= 1)")
+            check(max(ratio.values()) <= 1.0,
+                  f"normals [{label}]: a solved normal is further from the "
+                  f"float64 solve than its conditioning allows")
+
+    pts = xyz.to(dev)
+    ms_fps = time_ms(lambda: fps_ops.fps_two_level_order(pts, n1, n2),
+                     iters=5, warmup=1)
+    dm, choose, K_inv = dm.to(dev), choose.to(dev), K_inv.to(dev)
+    ms_nrm = time_ms(lambda: plane_normals(neighbourhoods(dm, choose,
+                                                          K_inv)), iters=10)
+    print(f"FPS two-level order [batch {B}: {2 * B} hands of {N}, levels "
+          f"{n1}/{n2}]: {ms_fps:.3f} ms a call; normals at the chosen "
+          f"pixels [batch {B}, {2 * B * N} points]: {ms_nrm:.3f} ms a call "
+          f"(eager, CUDA events) ({card})")
+
+
+def normals_phase(card, cfg, dev) -> None:
+    """``Config(sample_strategy="FPS", input_feature_num=6)`` at the full
+    width of the default ``Config``: the self-contained serving step, the
+    batched eval step on host clouds with FPS and normals, the train step,
+    each with its launches (``knn`` and ``group_feat`` once a step, no
+    other kernel) and a float32 step on the card against the CPU; frames/s
+    of the serving step beside the default config's; FPS and the normals
+    alone."""
+    import torch
+    import pdfnet_tpu_torch as port
+
+    ncfg = cfg.replace(**NORMALS)
+    res, n = ncfg.default_resolution, ncfg.sample_num
+    consts = port.load_loss_consts(dev)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in bench_batch(BATCH, res, n).items()}
+
+    # the self-contained serving step, once, through the user's entry points
+    model = port.build_model(ncfg, device=dev)
+    jitter_bn_(model, seed=6)
+    split_masks_(model, batch["input"])
+    step = make_serve_step(ncfg, model, consts,
+                           torch.Generator(device=dev).manual_seed(0))
+    reset_port_launches()
+    out, other = step(batch)
+    torch.cuda.synchronize()
+    check_launches(f"fps+normals serve step [bf16, batch {BATCH}]",
+                   NORMALS_LAUNCHES)
+    check_outputs("fps+normals serve step", out, BATCH)
+    share = (other["mask"] > 0.5).float().mean(dim=(0, 1, 2)).tolist()
+    print(f"fps+normals serve step [bf16] outputs: shapes ok, finite; mask "
+          f"share > 0.5 [left, right] {share[1]:.3f}, {share[0]:.3f}")
+    state = model.state_dict()
+    serve_check_phase(ncfg, state, batch, dev)
+    big = {k: torch.from_numpy(v).to(dev)
+           for k, v in bench_batch(4 * BATCH, res, n, seed=1).items()}
+    mdef = port.build_model(cfg, device=dev)
+    jitter_bn_(mdef, seed=6)
+    split_masks_(mdef, batch["input"])
+    step_def = make_serve_step(cfg, mdef, consts,
+                               torch.Generator(device=dev).manual_seed(0))
+    for label, st in (("FPS + normals", step), ("default config", step_def)):
+        for b, B in ((batch, BATCH), (big, 4 * BATCH)):
+            print(f"serve step frames/s [bf16, {label}, batch {B}]: "
+                  f"{fps(st, b, B, iters=10):.2f} ({card})")
+    del mdef, step_def, big
+
+    # the batched eval step on host clouds (host FPS + normals)
+    t0 = time.perf_counter()
+    host = port.make_batch(ncfg, BATCH, seed=0)
+    print(f"fps+normals batch [{BATCH}] made on the host in "
+          f"{time.perf_counter() - t0:.1f} s; valid hands "
+          f"{int(host['valid'].sum())} of {2 * BATCH}; cloud "
+          f"{host['cloud'].shape}")
+    check(host["cloud"].shape == (BATCH, 2, n, 6), "make_batch: not 6 "
+          "channels")
+    evstep = port.make_eval_step(ncfg, model, consts)
+    reset_port_launches()
+    out = evstep(host)
+    torch.cuda.synchronize()
+    check_launches(f"fps+normals eval step [bf16, batch {BATCH}]",
+                   NORMALS_LAUNCHES)
+    check_outputs("fps+normals eval step", out, BATCH)
+    c32 = ncfg.replace(compute_dtype="float32")
+    runs, replay = [], SelectionReplay()
+    b1 = {k: v[:1] for k, v in host.items()}
+    for i, d in enumerate((dev, torch.device("cpu"))):
+        m = port.HandNet(c32).to(d).eval()
+        m.load_state_dict({k: v.to(d) for k, v in state.items()})
+        st = port.make_eval_step(c32, m, port.load_loss_consts(d))
+        got = run_patched(replay.patches(card=i == 0), lambda: st(b1))
+        runs.append({k: v.cpu() for k, v in got.items()})
+    check(replay.done(), "the CPU eval step selected fewer times than the "
+          "card's")
+    print(f"fps+normals eval step [f32, batch 1]: the CPU's own neighbour "
+          f"selection differs from the card's in "
+          f"{replay.flips['neighbours']} of {replay.flips['slots']} slots; "
+          f"the CPU step replays the card's")
+    compare_steps("fps+normals eval step [f32, batch 1]", *runs)
+    del model, step, evstep
+
+    # the train step: 3 steps, the first counted
+    model = port.build_model(ncfg, device=dev)
+    state = port.create_train_state(ncfg, model)
+    tstep = port.make_train_step(ncfg, model, consts)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params0 = [p.detach().clone() for p in model.parameters()]
+    reset_port_launches()
+    losses = [tstep(state, host, 0, port.lr_at_epoch(ncfg, 0), gen)["loss"]]
+    torch.cuda.synchronize()
+    check_launches(f"fps+normals train step [bf16, batch {BATCH}]",
+                   NORMALS_LAUNCHES)
+    losses += [tstep(state, host, 0, port.lr_at_epoch(ncfg, 0), gen)["loss"]
+               for _ in range(2)]
+    losses = torch.stack(losses).cpu()
+    moved = sum(bool((p.detach() != q).any())
+                for p, q in zip(model.parameters(), params0))
+    print(f"fps+normals train step [bf16, batch {BATCH}]: losses "
+          f"{', '.join(f'{v:.1f}' for v in losses.tolist())}; {moved}/"
+          f"{len(params0)} parameters moved")
+    check(bool(torch.isfinite(losses).all()) and moved > 0.9 * len(params0),
+          "fps+normals train step: a loss is not finite or the parameters "
+          "did not move")
+    del model, state, tstep
+    train_check_phase(ncfg, dev)
+
+    fps_normals_alone(card, ncfg, host, dev)
+
+
+def normals_cli_phase(tree: str, work: str) -> None:
+    """The train/eval CLI with ``--sample_strategy FPS --input_feature_num
+    6`` on phase 7's H2O-format tree: ``--mode train`` for 2 steps, then
+    ``--mode test`` from its checkpoint; launches, score files."""
+    import numpy as np
+    import torch
+    from pdfnet_tpu_torch.cli.main import main as cli_main
+
+    out = os.path.join(work, "out_normals")
+    common = ["--cache_path", tree, "--pre_fix", tree, "--output_path", out,
+              "--batch_size", str(BATCH), "--eval_batch_size", str(BATCH),
+              "--sample_strategy", "FPS", "--input_feature_num", "6"]
+    reset_port_launches()
+    t0 = time.perf_counter()
+    trainer = cli_main(["--mode", "train", "--num_epochs", "1", "--steps",
+                        "2", "--eval_every", "0", "--save_every", "1"]
+                       + common)
+    torch.cuda.synchronize()
+    check(trainer.state.step == 2, "cli fps+normals train: not 2 steps")
+    check_launches(f"cli fps+normals --mode train [bf16, batch {BATCH}, 2 "
+                   f"steps; {time.perf_counter() - t0:.1f} s]",
+                   {n: 2 * v for n, v in NORMALS_LAUNCHES.items()})
+    ckpt = os.path.join(out, "ckpt", "default", "model_0")
+    del trainer
+    batches = -(-CLI_TEST // BATCH)
+    reset_port_launches()
+    t0 = time.perf_counter()
+    cli_main(["--mode", "test", "--load_model", ckpt] + common)
+    torch.cuda.synchronize()
+    check_launches(f"cli fps+normals --mode test [{CLI_TEST} records, "
+                   f"{batches} batches; {time.perf_counter() - t0:.1f} s]",
+                   {n: batches * v for n, v in NORMALS_LAUNCHES.items()})
+    text = open(os.path.join(out, "H2O-val.txt")).read()
+    vals = [float(line.split(": ")[1]) for line in text.splitlines()[1:]]
+    with open(os.path.join(out, "hand_poses.json")) as f:
+        sub = json.load(f)
+    entries = [x for k, v in sub.items() if k != "modality"
+               for x in v.values()]
+    check(len(vals) == 8 and all(np.isfinite(vals)) and len(entries)
+          == CLI_TEST and all(len(x) == 126 and np.isfinite(x).all()
+                              for x in entries),
+          f"cli fps+normals test: H2O-val.txt or hand_poses.json:\n{text}")
+    print(f"cli fps+normals: trained 2 steps, tested {CLI_TEST} records; "
+          f"metrics {vals}")
 
 
 # ---- phase 7: the train/eval CLI on an H2O-format tree ----------------------
@@ -1557,7 +1961,8 @@ def cli_phase(card, dev) -> None:
               f"cli f32 test mode: card differs from the CPU in {key}")
     print(f"cli test mode [f32, 2 records] card agrees with cpu: worst error "
           f"/ scale {worst:.3e} <= {STEP_TOL}")
-    # keep the score files; the tree and the checkpoint (~300 MB) go
+    normals_cli_phase(tree, work)
+    # keep the score files; the tree and the checkpoints (~300 MB each) go
     keep = os.path.join(OUT_DIR, "cli_scores")
     os.makedirs(keep, exist_ok=True)
     for name in ("H2O-val.txt", "hand_poses.json"):
@@ -1953,6 +2358,7 @@ def main() -> int:
     train_check_phase(cfg, dev)
     launches.update({n: v for n, v in serve_phase(args, card, cfg, dev).items()
                      if n in SERVE_KERNELS or n == "fused_bottleneck_s2"})
+    normals_phase(card, cfg, dev)
     cli_phase(card, dev)
     cli_serving_phases(card, dev)
 

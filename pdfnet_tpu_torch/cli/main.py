@@ -53,8 +53,7 @@ _HELP = {
     "image_summary": "write input|pred|gt render grids every "
                      "image_summary_every steps (needs the rasterizer: not "
                      "in the port yet)",
-    "input_feature_num": "3 = xyz point clouds, 6 = xyz+surface normals "
-                         "(not in the port yet)",
+    "input_feature_num": "3 = xyz point clouds, 6 = xyz+surface normals",
     "photometric_loss": "differentiable-render photometric/silhouette loss "
                         "terms (not in the port yet)",
     "off": "train the off_hm/off_lms sub-pixel offset heads",

@@ -18,7 +18,9 @@ only to float32 rounding, so neither package reads the other's cache.
 The host helpers are chosen by the ``native`` argument: the C++ cloud
 sampler and gaussian splat of ``pdfnet_tpu_torch.native`` (the JAX
 dataset's default, where its library builds), or the numpy versions.
-``sample_strategy="FPS"`` and ``input_feature_num=6`` are refused by name.
+``input_feature_num=6`` appends surface normals to the clouds and
+``sample_strategy="FPS"`` reorders them by two-level FPS, drawing from the
+sample's numpy stream after both hands are sampled, as the JAX dataset does.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ import torch
 
 from pdfnet_tpu_torch.config import Config
 from pdfnet_tpu_torch.data import augment as aug
-from pdfnet_tpu_torch.data.cloud import sample_hand_cloud
+from pdfnet_tpu_torch.data.cloud import fps_reorder_cloud, sample_hand_cloud
 from pdfnet_tpu_torch.data.targets import centernet_targets
 from pdfnet_tpu_torch.mano import layer as mano
 
@@ -159,16 +161,6 @@ class H2ODataset:
     numpy versions."""
 
     def __init__(self, cfg: Config, split: str, native: bool = True):
-        refused = []
-        if cfg.sample_strategy != "random":
-            refused.append(f"sample_strategy={cfg.sample_strategy!r} (the "
-                           f"host FPS reordering of data/cloud.py)")
-        if cfg.input_feature_num != 3:
-            refused.append(f"input_feature_num={cfg.input_feature_num} "
-                           f"(surface normals in the clouds)")
-        if refused:
-            raise NotImplementedError("the port's dataset does not implement "
-                                      + "; ".join(refused))
         self.cfg = cfg
         self.split = split
         self.native = native
@@ -419,15 +411,27 @@ class H2ODataset:
         band = ((depth > 0.2) & (depth < 2.5)).astype(np.float32)
         depth_b = depth * band
         n = cfg.sample_num
+        normals = cfg.input_feature_num == 6
         det = cfg.deterministic_cloud_sampling
         choose_l, cloud_l, ok_l = sample_hand_cloud(depth_b * mask_left,
                                                     K_img, n, rng,
                                                     deterministic=det,
-                                                    native=self.native)
+                                                    native=self.native,
+                                                    with_normals=normals)
         choose_r, cloud_r, ok_r = sample_hand_cloud(depth_b * mask_right,
                                                     K_img, n, rng,
                                                     deterministic=det,
-                                                    native=self.native)
+                                                    native=self.native,
+                                                    with_normals=normals)
+        if cfg.sample_strategy == "FPS":
+            if ok_l:
+                cloud_l, choose_l = fps_reorder_cloud(
+                    cloud_l, choose_l, cfg.sample_num_level1,
+                    cfg.sample_num_level2, rng)
+            if ok_r:
+                cloud_r, choose_r = fps_reorder_cloud(
+                    cloud_r, choose_r, cfg.sample_num_level1,
+                    cfg.sample_num_level2, rng)
         if has_depth:          # a failed depth sample demotes the hand
             valid_l = valid_l and ok_l
             valid_r = valid_r and ok_r

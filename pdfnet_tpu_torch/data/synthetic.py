@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from pdfnet_tpu_torch.config import Config
-from pdfnet_tpu_torch.data.cloud import sample_hand_cloud
+from pdfnet_tpu_torch.data.cloud import fps_reorder_cloud, sample_hand_cloud
 from pdfnet_tpu_torch.data.targets import centernet_targets
 from pdfnet_tpu_torch.mano import layer as mano
 
@@ -48,11 +48,6 @@ def _splat_depth_mask(verts2d: np.ndarray, z: np.ndarray, res: int,
 
 
 def make_sample(cfg: Config, seed: int) -> Dict[str, np.ndarray]:
-    if cfg.input_feature_num != 3 or cfg.sample_strategy != "random":
-        raise NotImplementedError("the port's synthetic data samples xyz "
-                                  "clouds at random (input_feature_num=3, "
-                                  "sample_strategy='random'); normals and "
-                                  "FPS come with the data slice")
     rng = np.random.RandomState(seed)
     res = cfg.default_resolution
     f = res * 1.25
@@ -98,8 +93,20 @@ def make_sample(cfg: Config, seed: int) -> Dict[str, np.ndarray]:
                             cfg.down_ratio)
 
     n = cfg.sample_num
-    choose_l, cloud_l, ok_l = sample_hand_cloud(depth * m_l, K, n, rng)
-    choose_r, cloud_r, ok_r = sample_hand_cloud(depth * m_r, K, n, rng)
+    normals = cfg.input_feature_num == 6
+    choose_l, cloud_l, ok_l = sample_hand_cloud(depth * m_l, K, n, rng,
+                                                with_normals=normals)
+    choose_r, cloud_r, ok_r = sample_hand_cloud(depth * m_r, K, n, rng,
+                                                with_normals=normals)
+    if cfg.sample_strategy == "FPS":
+        if ok_l:
+            cloud_l, choose_l = fps_reorder_cloud(
+                cloud_l, choose_l, cfg.sample_num_level1,
+                cfg.sample_num_level2, rng)
+        if ok_r:
+            cloud_r, choose_r = fps_reorder_cloud(
+                cloud_r, choose_r, cfg.sample_num_level1,
+                cfg.sample_num_level2, rng)
     valid = np.array([float(ok_l), float(ok_r)], np.float32) * tgt["valid"]
 
     return {

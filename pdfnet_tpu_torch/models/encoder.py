@@ -77,7 +77,7 @@ class FPNEncoder(nn.Module):
     def forward(self, img: torch.Tensor, cloud: torch.Tensor,
                 choose: torch.Tensor, ind: Optional[torch.Tensor] = None,
                 aux: bool = True):
-        """img (B, 3, H, W) normalized RGB, cloud (B, 2, N, 3), choose
+        """img (B, 3, H, W) normalized RGB, cloud (B, 2, N, 3 or 6), choose
         (B, 2, N), ind (B, 2) the hand centers' flat indices (the ground
         truth at train time) or None to decode them from the predicted
         heatmap, as the JAX module does at test time.

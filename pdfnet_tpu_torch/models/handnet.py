@@ -49,12 +49,6 @@ def check_config(cfg: Config) -> None:
     if cfg.knn_method not in FUSED_METHODS + GENERIC_METHODS:
         refused.append(f"knn_method={cfg.knn_method!r} (lax.approx_max_k has "
                        f"no counterpart)")
-    if cfg.sample_strategy != "random":
-        refused.append(f"sample_strategy={cfg.sample_strategy!r} (the "
-                       f"self-contained path's FPS ordering)")
-    if cfg.input_feature_num != 3:
-        refused.append(f"input_feature_num={cfg.input_feature_num} (xyz "
-                       f"clouds only: no normals)")
     if cfg.use_img_attn:
         refused.append("use_img_attn=True (the decoder's image attention)")
     if cfg.s2d_stem:
@@ -119,7 +113,8 @@ class HandNet(nn.Module):
                 valid: Optional[torch.Tensor] = None,
                 point_generator: Optional[torch.Generator] = None):
         """img (B, H, W, 3) normalized RGB (NHWC, as the JAX model takes it),
-        choose (B, 2, N) flat pixel indices, cloud (B, 2, N, 3), ind (B, 2)
+        choose (B, 2, N) flat pixel indices, cloud (B, 2, N, 3) xyz (or
+        (B, 2, N, 6) xyz + normals at ``input_feature_num=6``), ind (B, 2)
         the hand centers' flat indices on the /4 grid (the ground truth at
         train time) or None to decode them from the predicted heatmap;
         ``generator`` feeds dropout at train time.
@@ -150,7 +145,11 @@ class HandNet(nn.Module):
                 mask_lr = mask.detach().flip(1).permute(0, 2, 3, 1)
                 choose, cloud, _ok = depth_to_hand_clouds(
                     depth, mask_lr, K, valid, point_generator,
-                    cfg.sample_num, deterministic=cfg.sample_deterministic)
+                    cfg.sample_num,
+                    with_normals=cfg.input_feature_num == 6,
+                    fps_levels=((cfg.sample_num_level1, cfg.sample_num_level2)
+                                if cfg.sample_strategy == "FPS" else None),
+                    deterministic=cfg.sample_deterministic)
                 fuse = self.encoder.point_phase(cached, cloud, choose, ind)
                 img_fmaps = [fuse, cached["x2"], cached["x3"], cached["x4"]]
                 hms_fmaps, dp_fmaps = cached["hms_fmaps"], cached["dp_fmaps"]

@@ -5,10 +5,12 @@ intaghand_encoder.py:32-159).
 Levels 1 and 2 dispatch on ``knn_method`` as the JAX module does
 (``pointnet.py:123-171``):
 
-- ``"pallas_sa"`` at eval: ``ops.sa`` (grouping + BN-folded MLP + max-pool
-  kernels on the card, their plain versions on the CPU);
-- otherwise ``ops.grouping`` groups (``"pallas_fused"``/``"pallas_sa"``:
-  the fused K3/K4 kernels with custom backward passes; ``"topk"`` /
+- ``"pallas_sa"`` at eval on xyz clouds: ``ops.sa`` (grouping + BN-folded
+  MLP + max-pool kernels on the card, their plain versions on the CPU);
+- otherwise (training, another method, or clouds with normals,
+  ``input_feature_num=6``, at eval too) ``ops.grouping`` groups
+  (``"pallas_fused"``/``"pallas_sa"``: the fused K3/K4 kernels with custom
+  backward passes, level 1 of clouds with normals excepted; ``"topk"`` /
   ``"pallas"``: the generic kNN + ball query + gather) and the unfolded
   ``PointMLP`` runs (live BatchNorm at train time) with a max over the k
   neighbours.
@@ -76,9 +78,10 @@ def _fold_point_mlp(mlp: PointMLP) -> List[Tuple[torch.Tensor, torch.Tensor]]:
 
 
 class PointNetPlus(nn.Module):
-    """Two-hand set abstraction: points (B, 2, N, 3), pyramid embeddings
-    [(B, 3, H, W), (B, 64, H/2, W/2), (B, 256, H/4, W/4)], choose (B, 2, N)
-    flat pixel indices -> (B, 2, 1024).  Both hands fold into one batch axis.
+    """Two-hand set abstraction: points (B, 2, N, input_feature_num) (xyz,
+    or xyz + normals), pyramid embeddings [(B, 3, H, W), (B, 64, H/2, W/2),
+    (B, 256, H/4, W/4)], choose (B, 2, N) flat pixel indices -> (B, 2, 1024).
+    Both hands fold into one batch axis.
     """
 
     def __init__(self, knn_k: int = 64, num_level1: int = 512,
@@ -88,10 +91,6 @@ class PointNetPlus(nn.Module):
                  compute_dtype: torch.dtype = torch.float32,
                  knn_method: str = "pallas_sa"):
         super().__init__()
-        if input_feature_num != 3:
-            raise NotImplementedError(
-                "input_feature_num=6: the port's set abstraction takes xyz "
-                "clouds only (input_feature_num=3)")
         self.knn_method = knn_method
         self.knn_k = knn_k
         self.num_level1 = num_level1
@@ -134,7 +133,9 @@ class PointNetPlus(nn.Module):
 
         S1, S2, k, method = (self.num_level1, self.num_level2, self.knn_k,
                              self.knn_method)
-        use_sa = method == "pallas_sa" and not self.training
+        # the fused kernels group xyz rows at level 1 (pointnet.py:128-133)
+        use_sa = (method == "pallas_sa" and not self.training
+                  and pts.shape[-1] == 3)
         if use_sa:
             x = sa_level1(pts.float(), _fold_point_mlp(self.mlp1), k, S1,
                           self.ball_radius, self.compute_dtype)

@@ -4,7 +4,8 @@
 - ``"pallas_fused"`` / ``"pallas_sa"``: the fused branches, ``group_points``
   -> ``_fused_group_pallas`` and ``group_points_level2`` ->
   ``_fused_group_feat_pallas`` (the two kernels below);
-- ``"topk"`` / ``"pallas"``: the generic branch, ``knn_ball_query`` (the
+- ``"topk"`` / ``"pallas"``, and level 1 of clouds wider than xyz under
+  every method: the generic branch, ``knn_ball_query`` (the
   selection under ``no_grad``, as JAX's ``stop_gradient``), an exact row
   gather and xyz minus center, differentiated by autograd through the
   gather.  ``"pallas"`` selects with the ``ops.sa.knn`` kernel (K5),
@@ -244,9 +245,13 @@ def _group_generic(feat: torch.Tensor, num_centers: int, k: int,
 def group_points(points: torch.Tensor, k: int, num_centers: int,
                  radius2: float, knn_method: str = "pallas_fused"
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Level-1 grouping of xyz clouds: points (H, N, 3) -> (grouped
-    (H, S, k, 3) center-relative, zero out of the ball; centers (H, S, 3))."""
-    if knn_method in FUSED_METHODS:
+    """Level-1 grouping: points (H, N, C), xyz leading -> (grouped
+    (H, S, k, C), xyz center-relative; centers (H, S, 3)).  The fused
+    branch takes xyz clouds (C = 3) and zeroes out-of-ball neighbours;
+    wider clouds (xyz + normals) take the generic branch, whose
+    out-of-ball neighbour is the center itself, as ``grouping.py:140-153``
+    does (under the fused methods its selection is the ``knn`` kernel)."""
+    if knn_method in FUSED_METHODS and points.shape[-1] == 3:
         grouped = _GroupPoints.apply(points, k, num_centers, radius2)
     else:
         grouped = _group_generic(points, num_centers, k, radius2, knn_method)

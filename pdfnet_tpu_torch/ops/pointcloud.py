@@ -16,6 +16,12 @@ stays asynchronous:
   device, +2 on in-band pixels, and an exact top-N.  JAX takes
   ``lax.approx_max_k`` there, so the two agree in distribution only: both
   give a uniform random subset in random order.
+
+``with_normals`` appends each point's surface normal, fitted on the hand's
+masked depth (``normals_at``: the plane fit of ``ops.geometry`` at the
+chosen pixels only, where JAX fits the whole map and gathers); ``fps_levels``
+reorders each hand's cloud and pixel indices by two-level FPS
+(``ops.fps``), all hands in one loop.
 """
 
 from __future__ import annotations
@@ -23,6 +29,9 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from pdfnet_tpu_torch.ops.fps import fps_two_level_order
+from pdfnet_tpu_torch.ops.geometry import NORMAL_OFFSETS, plane_normals
 
 Z_MIN, Z_MAX = 0.2, 2.5
 BAND = 0.08
@@ -87,6 +96,35 @@ def backproject_at(choose: torch.Tensor, z: torch.Tensor,
     return rays * z[..., None]
 
 
+def neighbourhoods(depth: torch.Tensor, choose: torch.Tensor,
+                   K_inv: torch.Tensor) -> torch.Tensor:
+    """The plane fit's neighbourhoods at flat pixel indices choose (..., N)
+    of depth maps (..., H, W) with K_inv (..., 3, 3): (..., N, 25, 3) the
+    backprojected points at the ``NORMAL_OFFSETS`` grid around each pixel,
+    zero outside the map (``depth_normals``' zero padding)."""
+    H, W = depth.shape[-2:]
+    u, v = choose % W, torch.div(choose, W, rounding_mode="floor")
+    # the offsets made on the device: a host list would copy and synchronise
+    n = len(NORMAL_OFFSETS)
+    offs = torch.arange(n, device=choose.device) * 2 - 4
+    dy, dx = offs[:, None].expand(n, n).reshape(-1), offs.repeat(n)
+    uu, vv = u[..., None] + dx, v[..., None] + dy            # (..., N, 25)
+    inside = (uu >= 0) & (uu < W) & (vv >= 0) & (vv < H)
+    pix = torch.where(inside, vv * W + uu, 0)
+    flat = depth.reshape(*depth.shape[:-2], 1, H * W)
+    z = torch.gather(flat.expand(*pix.shape[:-1], H * W), -1, pix)
+    return backproject_at(pix, torch.where(inside, z, 0.0),
+                          K_inv[..., None, :, :], W)
+
+
+def normals_at(depth: torch.Tensor, choose: torch.Tensor,
+               K_inv: torch.Tensor) -> torch.Tensor:
+    """Unit normals (..., N, 3) at flat pixel indices choose (..., N) of
+    depth maps (..., H, W): ``depth_normals`` of ``backproject_depth(depth,
+    K_inv)`` gathered at choose, computed at the chosen pixels only."""
+    return plane_normals(neighbourhoods(depth, choose, K_inv))
+
+
 def depth_to_hand_clouds(depth: torch.Tensor, mask: torch.Tensor,
                          K: torch.Tensor, valid: torch.Tensor,
                          generator: Optional[torch.Generator] = None,
@@ -97,16 +135,12 @@ def depth_to_hand_clouds(depth: torch.Tensor, mask: torch.Tensor,
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """depth (B, H, W) metric, mask (B, H, W, 2) per-hand masks [left, right]
     (probabilities, thresholded at 0.5), K (B, 3, 3), valid (B, 2) -> (choose
-    (B, 2, N) int64, cloud (B, 2, N, 3) float32, ok (B, 2) bool), as
+    (B, 2, N) int64, cloud (B, 2, N, 3 or 6) float32, ok (B, 2) bool), as
     ``depth_to_hand_clouds`` (``pointcloud.py:126-185``).  ``generator``
     feeds the random mode (a fresh one seeded 0 when None, as JAX falls back
-    to ``PRNGKey(0)``)."""
-    if with_normals:
-        raise NotImplementedError("with_normals (input_feature_num=6): the "
-                                  "port builds xyz clouds only")
-    if fps_levels is not None:
-        raise NotImplementedError("fps_levels (sample_strategy='FPS'): the "
-                                  "port has no FPS ordering yet")
+    to ``PRNGKey(0)``).  ``with_normals`` appends the normals of each hand's
+    masked depth; ``fps_levels=(n1, n2)`` then reorders each hand by
+    two-level FPS, before the hands that are not valid are zeroed."""
     B, H, W = depth.shape
     depth = depth.float()
     band = (depth > Z_MIN) & (depth < Z_MAX)
@@ -118,7 +152,16 @@ def depth_to_hand_clouds(depth: torch.Tensor, mask: torch.Tensor,
     choose, z, ok = choose_hands(dm, num_points, min_pixels, deterministic,
                                  generator)
     K_inv = torch.linalg.inv_ex(K.float())[0]                # no host sync
-    cloud = backproject_at(choose, z, K_inv[:, None], W)
+    cloud = torch.where(ok[..., None, None],
+                        backproject_at(choose, z, K_inv[:, None], W), 0.0)
+    if with_normals:
+        nrm = normals_at(dm.reshape(B, 2, H, W), choose, K_inv[:, None])
+        cloud = torch.cat([cloud, torch.where(ok[..., None, None], nrm, 0.0)],
+                          dim=-1)
+    if fps_levels is not None:
+        order = fps_two_level_order(cloud[..., :3], *fps_levels)
+        choose = torch.gather(choose, -1, order)
+        cloud = torch.gather(cloud, 2, order[..., None].expand_as(cloud))
     ok = ok & (valid > 0)
     choose = torch.where(ok[..., None], choose, 0)
     cloud = torch.where(ok[..., None, None], cloud, 0.0)

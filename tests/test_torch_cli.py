@@ -5,7 +5,9 @@
   the parser has the JAX CLI's flags and choices.
 - The values the port has no path for are refused by name before any data
   or model is built: the multi-process flags, ``--no-depth``, and the
-  Config values refused by the model, the trainer and the dataset.
+  Config values refused by the model and the trainer.
+- ``--sample_strategy FPS`` and ``--input_feature_num 6`` train a step,
+  and the CLI's dataset gives the JAX dataset's batch for them.
 - ``main(["--cpu", "--mode", "train", ..., "--steps", "2"])`` on the H2O
   fixture tree, then ``--mode test --load_model`` of its checkpoint, writes
   ``H2O-val.txt`` and a ``hand_poses.json`` with the JAX CLI's structure
@@ -98,8 +100,6 @@ def test_no_depth_is_refused():
     (["--zero1_opt_sharding"], NotImplementedError, "zero1_opt_sharding="),
     (["--image_summary"], NotImplementedError, "image_summary="),
     (["--photometric_loss"], NotImplementedError, "photometric_loss="),
-    (["--input_feature_num", "6"], NotImplementedError, "input_feature_num="),
-    (["--sample_strategy", "FPS"], NotImplementedError, "sample_strategy="),
     (["--knn_k", "600"], ValueError, "knn_k=600"),
     (["--sample_num", "4096", "--sample_num_level1", "4096", "--knn_k",
       "4096"], ValueError, "MAX_SMEM")])
@@ -135,3 +135,38 @@ def test_train_then_test_writes_the_score_files(h2o_tree, tmp_path):
     assert sorted(sub["1"]) == ["000000.txt", "000001.txt", "000002.txt"]
     assert all(len(v) == 126 and np.isfinite(v).all()
                for v in sub["1"].values())
+
+
+@pytest.mark.parametrize("flags", [["--sample_strategy", "FPS"],
+                                   ["--input_feature_num", "6"]])
+def test_train_step_with_fps_or_normals(h2o_tree, tmp_path, flags):
+    """``--sample_strategy FPS`` and ``--input_feature_num 6`` run: one
+    train step at 192x192 (where the fixture's hands are valid), finite
+    parameters after its update, the model's level-1 width following the
+    flag; and the CLI's
+    dataset gives the JAX dataset's first batch of the same flags, key by
+    key."""
+    from pdfnet_tpu.config import Config as JaxConfig
+    from pdfnet_tpu.data.h2o import H2ODataset as JaxDataset
+    from pdfnet_tpu_torch.data.h2o import H2ODataset
+    from test_torch_h2o import _compare
+    out = str(tmp_path / "out")
+    argv = (["--cpu", "--cache_path", h2o_tree, "--pre_fix", h2o_tree,
+             "--output_path", out, "--batch_size", "2", "--sample_num",
+             "256", "--sample_num_level1", "128", "--sample_num_level2", "32",
+             "--knn_k", "8", "--compute_dtype", "float32", "--num_workers",
+             "2", "--default_resolution", "192"] + flags)
+    trainer = main(["--mode", "train", "--num_epochs", "1", "--steps", "1",
+                    "--eval_every", "0", "--save_every", "0"] + argv)
+    assert trainer.state.step == 1
+    assert all(torch.isfinite(p).all() for p in trainer.model.parameters())
+    cfg = trainer.cfg
+    c = cfg.input_feature_num
+    assert trainer.model.encoder.pointnet.mlp1.fc0.in_features == c
+    assert cfg.sample_strategy == ("FPS" if "FPS" in flags else "random")
+    fields = {f.name: getattr(cfg, f.name)
+              for f in dataclasses.fields(Config)}
+    got = next(H2ODataset(cfg, "train").batches(2, 0))
+    want = next(JaxDataset(JaxConfig(**fields), "train").batches(2, 0))
+    assert got["cloud"].shape == (2, 2, 256, c) and want["valid"].sum() > 0
+    _compare(got, want)

@@ -215,10 +215,29 @@ def test_batches_and_build_dataset(h2o_tree):
     assert test[1]["frame_num"].tolist() == [2, 2]
 
 
-@pytest.mark.parametrize("field,value", [("sample_strategy", "FPS"),
-                                         ("input_feature_num", 6)])
-def test_dataset_refuses_what_the_port_lacks(h2o_tree, field, value):
-    cfg = Config(cache_path=h2o_tree, pre_fix=h2o_tree, sample_num=256,
-                 **{field: value})
-    with pytest.raises(NotImplementedError, match=f"{field}="):
-        H2ODataset(cfg, "test")
+@pytest.mark.parametrize("split,epoch,variant", [
+    ("train", 0, dict(sample_strategy="FPS")),
+    ("test", 0, dict(input_feature_num=6)),
+    ("train", 3, dict(sample_strategy="FPS", input_feature_num=6)),
+    ("test", 0, dict(sample_strategy="FPS", input_feature_num=6,
+                     deterministic_cloud_sampling=True))])
+def test_normals_and_fps_equal_jax(h2o_tree, jax_native_built, split, epoch,
+                                   variant):
+    """Clouds with normals (the C++ sampler's, or the deterministic numpy
+    one's, with the plane-fit normals appended) and the host FPS
+    reordering, whose start points are drawn from the sample's stream after
+    both hands are sampled: the same keys as ``test_h2o_equals_jax``.  At
+    the default 384x384 the fixture's hands have enough depth pixels to be
+    valid (at 64x64 they have not)."""
+    kw = dict(cache_path=h2o_tree, pre_fix=h2o_tree, sample_num=256,
+              sample_num_level1=128, sample_num_level2=32, **variant)
+    port = H2ODataset(Config(**kw), split)
+    ref = JaxDataset(JaxConfig(**kw), split)
+    hands = 0
+    for i in range(len(ref)):
+        got, want = port.__getitem__(i, epoch), ref.__getitem__(i, epoch)
+        _compare(got, want)
+        assert got["cloud"].shape == (2, 256,
+                                      variant.get("input_feature_num", 3))
+        hands += int(want["valid"].sum())
+    assert hands > 0

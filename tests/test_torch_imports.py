@@ -1,9 +1,9 @@
 """Package hygiene of the PyTorch port: it imports nothing of JAX or of the
-JAX package, its ``Config`` mirrors ``pdfnet_tpu.config.Config``, and every
+JAX package, its ``Config`` mirrors ``pdfnet_tpu.config.Config``, every
 entry point refuses by name the values whose JAX path it lacks
-(``build_model``, the dataset, the trainer, the CLI's multi-process flags)
-and the device limits that remain (the selection kernel's shared
-memory)."""
+(``build_model``, the trainer, the CLI's multi-process flags) and the device
+limits that remain (the selection kernel's shared memory), and the values it
+has since taken (FPS, normals) build a model the JAX weights fit."""
 
 import dataclasses
 import os
@@ -85,13 +85,12 @@ def test_new_modules_are_walked():
               "train.trainer", "utils.vis", "utils.profiler", "cli.main",
               "utils.eval_kit", "utils.convert_torch", "render",
               "render.lighting", "render.rasterizer", "cli.demo",
-              "cli.infer", "bench"):
+              "cli.infer", "bench", "ops.fps", "data.interhand_new"):
         assert f"pdfnet_tpu_torch.{m}" in mods, m
 
 
 @pytest.mark.parametrize("field,value", [
-    ("knn_method", "approx"), ("sample_strategy", "FPS"),
-    ("input_feature_num", 6), ("use_img_attn", True), ("s2d_stem", True),
+    ("knn_method", "approx"), ("use_img_attn", True), ("s2d_stem", True),
     ("patch_heads", True)])
 def test_build_model_refuses_what_the_port_lacks(field, value):
     """A Config value whose JAX path the port does not have is refused by
@@ -101,14 +100,37 @@ def test_build_model_refuses_what_the_port_lacks(field, value):
         build_model(cfg, device="cpu")
 
 
-@pytest.mark.parametrize("field,value", [("sample_strategy", "FPS"),
-                                         ("input_feature_num", 6)])
-def test_dataset_refuses_what_the_port_lacks(field, value, tmp_path):
-    """Before it looks for the annotation cache."""
-    from pdfnet_tpu_torch.data.h2o import H2ODataset
-    cfg = PortConfig(cache_path=str(tmp_path)).replace(**{field: value})
-    with pytest.raises(NotImplementedError, match=f"{field}="):
-        H2ODataset(cfg, "train")
+@pytest.mark.parametrize("variant", [
+    dict(sample_strategy="FPS"), dict(input_feature_num=6),
+    dict(sample_strategy="FPS", input_feature_num=6)])
+def test_build_model_takes_normals_and_fps(variant):
+    """``sample_strategy="FPS"`` and ``input_feature_num=6`` build, and the
+    JAX set abstraction's variables at the same widths cross onto the
+    port's parameters shape for shape (``convert.from_flax`` checks every
+    leaf): the six-channel clouds widen the level-0 SFT and the level-1
+    MLP, and nothing else of the model depends on either value."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from pdfnet_tpu.models.pointnet import PointNetPlus as JaxPointNetPlus
+    from pdfnet_tpu_torch import convert
+    cfg = PortConfig(default_resolution=64, sample_num=256,
+                     sample_num_level1=128, sample_num_level2=128, knn_k=8,
+                     **variant)
+    model = build_model(cfg, device="cpu")
+    c = cfg.input_feature_num
+    jmod = JaxPointNetPlus(knn_k=8, num_level1=128, num_level2=128,
+                           input_feature_num=c, resolution=64,
+                           dtype=jnp.float32)
+    args = (np.zeros((1, 2, 256, c), np.float32),
+            [np.zeros((1, 64 // s, 64 // s, w), np.float32)
+             for s, w in ((1, 3), (2, 64), (4, 256))],
+            np.zeros((1, 2, 256), np.int32), False)
+    variables = jmod.init(jax.random.PRNGKey(0), *args)
+    pointnet = model.encoder.pointnet
+    pointnet.load_state_dict(convert.from_flax(variables, pointnet))
+    assert pointnet.mlp1.fc0.in_features == c
+    assert pointnet.sft0.scale1.out_features == c
 
 
 @pytest.mark.parametrize("field,value", [

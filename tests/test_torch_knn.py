@@ -223,3 +223,67 @@ def test_knn_separate_centers_match_pallas_on_hard_clouds(kind):
     if kind == "coarse":
         d = sa.knn(torch.from_numpy(ctr), torch.from_numpy(pts), K + 1)[0]
         assert (d[..., K - 1] == d[..., K]).any(), "no k-th-place ties"
+
+
+def _six_channels(seed):
+    """Grid xyz (``_grid_points``) with three more channels, the normals
+    of a cloud at ``input_feature_num=6``."""
+    rng = np.random.RandomState(seed + 200)
+    return np.concatenate([_grid_points(seed),
+                           rng.randn(H, N, 3).astype(np.float32)], -1)
+
+
+@pytest.mark.parametrize("method", ["pallas_sa", "pallas_fused", "pallas"])
+def test_six_channel_level1_takes_the_knn_route(method, monkeypatch):
+    """Level 1 of an xyz + normals cloud under the fused methods takes the
+    generic route with the ``knn`` selection (``grouping.py:139-153``: the
+    fused kernel groups xyz only), never ``knn_group_xyz``: forward bit for
+    bit against the JAX generic branch (on grid points the matmul
+    expansion is exact, so its ``top_k`` is the exact selection, which
+    ``knn_pallas`` makes on the TPU) and backward against ``jax.vjp``."""
+    calls = []
+    monkeypatch.setattr(grouping, "knn", lambda c, p, k: (
+        calls.append((c.is_contiguous(), p.shape[-1])) or sa.knn(c, p, k)))
+    monkeypatch.setattr(grouping, "knn_group_xyz", None)
+    x = _six_channels(6)
+    (g_j, c_j), vjp = jax.vjp(lambda p: jax_grouping.group_points(
+        p, k=K, num_centers=S, radius2=ON_RADIUS, knn_method="topk"),
+        jnp.asarray(x))
+    rng = np.random.RandomState(7)
+    cots = [rng.randn(*a.shape).astype(np.float32) for a in (g_j, c_j)]
+    (want,) = vjp(tuple(map(jnp.asarray, cots)))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    g_t, c_t = grouping.group_points(xt, K, S, ON_RADIUS, method)
+    assert calls == [(True, 3)]
+    assert g_t.shape == (H, S, K, 6)
+    np.testing.assert_array_equal(g_t.detach().numpy(), np.asarray(g_j))
+    np.testing.assert_array_equal(c_t.detach().numpy(), np.asarray(c_j))
+    (got,) = torch.autograd.grad((g_t, c_t), xt,
+                                 tuple(map(torch.from_numpy, cots)))
+    _assert_close_to_scale(got.numpy(), np.asarray(want))
+
+
+def test_group_feat_route_under_inference_mode():
+    """Level 2 of the six-channel eval and serving steps runs the fused
+    feature grouping (the ``group_feat`` kernel on the card) under
+    ``torch.inference_mode()``: the same rows as with autograd on, and as
+    JAX's ``group_feat_pallas`` in interpret mode."""
+    x = _feat(8)
+    with torch.inference_mode():
+        g_inf, c_inf = grouping.group_points_level2(
+            torch.from_numpy(x), S, K, R2, torch.float32, "pallas_sa")
+    assert g_inf.is_inference()
+    g, c = grouping.group_points_level2(
+        torch.from_numpy(x).requires_grad_(True), S, K, R2, torch.float32,
+        "pallas_sa")
+    torch.testing.assert_close(g_inf, g.detach(), rtol=0, atol=0)
+    torch.testing.assert_close(c_inf, c.detach(), rtol=0, atol=0)
+    old = jax_grouping._FUSED_INTERPRET
+    jax_grouping._FUSED_INTERPRET = True
+    try:
+        g_j, _ = jax_grouping.group_points_level2(
+            jnp.asarray(x), num_centers=S, k=K, radius2=R2,
+            knn_method="pallas_sa")
+    finally:
+        jax_grouping._FUSED_INTERPRET = old
+    np.testing.assert_array_equal(g_inf.numpy(), np.asarray(g_j))

@@ -10,6 +10,9 @@ hand (more in-band pixels than N, with out-of-range and out-of-band depths
 among them), a sparse one (wrap padding), one under ``MIN_PIXELS`` and one
 marked not valid.
 
+``with_normals`` and ``fps_levels`` are compared in deterministic mode, as
+the cloud they start from.
+
 Random mode draws its priorities from a ``torch.Generator`` and takes an
 exact top-N, where JAX takes ``lax.approx_max_k`` of ``jax.random``
 priorities: the two agree in distribution only, so the test checks the
@@ -121,9 +124,41 @@ def test_random_clouds_have_the_sampler_properties():
     torch.testing.assert_close(cloud, want, atol=1e-6, rtol=1e-6)
 
 
-def test_unsupported_options_raise():
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("with_normals,fps_levels", [
+    (True, None), (False, (32, 16)), (True, (32, 16)), (True, (64, 64))])
+def test_normals_and_fps_match_jax(seed, with_normals, fps_levels):
+    """``with_normals`` (xyz + the normals of each hand's masked depth) and
+    ``fps_levels`` (two-level FPS of each hand, the zeroed hands included)
+    in deterministic mode: ``choose`` and ``ok`` identical, the cloud within
+    1e-5 (every point's det(A^T A) is far under the guard's 1e-5 here, so
+    the normals are normalized neighbour sums: float32 sums in another
+    order)."""
+    scene = _scene(seed)
+    kw = dict(with_normals=with_normals, fps_levels=fps_levels)
+    choose_j, cloud_j, ok_j = jax_pointcloud.depth_to_hand_clouds(
+        *map(jnp.asarray, scene), jax.random.PRNGKey(0), num_points=NPTS,
+        deterministic=True, **kw)
+    choose_t, cloud_t, ok_t = _port(scene, deterministic=True, **kw)
+    np.testing.assert_array_equal(ok_t.numpy(), np.asarray(ok_j))
+    np.testing.assert_array_equal(choose_t.numpy(), np.asarray(choose_j))
+    cj = np.asarray(cloud_j)
+    assert cloud_t.shape == cj.shape == (B, 2, NPTS, 6 if with_normals else 3)
+    np.testing.assert_allclose(cloud_t.numpy(), cj, rtol=0, atol=1e-5)
+    if with_normals:
+        n = np.linalg.norm(cloud_t[..., 3:].numpy(), axis=-1)
+        np.testing.assert_allclose(n[ok_t.numpy()], 1.0, atol=1e-6)
+
+
+def test_clouds_stay_float32_under_autocast():
+    """The model builds its clouds inside its bf16 autocast region: the
+    normals' plane fit (an einsum, which autocast would run in bf16) and
+    the FPS order are the float32 ones."""
     scene = _scene()
-    with pytest.raises(NotImplementedError, match="with_normals"):
-        _port(scene, with_normals=True)
-    with pytest.raises(NotImplementedError, match="FPS"):
-        _port(scene, fps_levels=(32, 16))
+    kw = dict(deterministic=True, with_normals=True, fps_levels=(32, 16))
+    want = _port(scene, **kw)
+    with torch.autocast("cpu", dtype=torch.bfloat16):
+        got = _port(scene, **kw)
+    assert got[1].dtype == torch.float32
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

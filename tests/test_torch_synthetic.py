@@ -19,6 +19,7 @@ batches against the JAX package's.
 """
 
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -212,9 +213,86 @@ def test_make_batch_matches_jax(batches, key):
         np.testing.assert_array_equal(got[key], want[key])
 
 
-def test_make_sample_refuses_what_the_port_lacks():
-    with pytest.raises(NotImplementedError):
-        port.make_batch(port.Config(**SMALL, input_feature_num=6), 1)
+VARIANTS = [dict(input_feature_num=6), dict(sample_strategy="FPS"),
+            dict(input_feature_num=6, sample_strategy="FPS")]
+
+
+def _port_meshes(mp):
+    """The JAX ``make_sample`` with the port's MANO in place of its own:
+    the same meshes, so the same depth bits."""
+    from pdfnet_tpu.data import synthetic as jax_synthetic
+    from pdfnet_tpu_torch.data import synthetic
+
+    def mano_forward(c, root, pose, shape, trans):
+        side = "left" if c is jax_synthetic._consts("left") else "right"
+        t = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+        with torch.no_grad():
+            v, j = mano.mano_forward(synthetic._consts(side), t(root),
+                                     t(pose), t(shape), trans=t(trans))
+        return v.numpy(), j.numpy()
+    mp.setattr(jax_synthetic, "mano", types.SimpleNamespace(
+        mano_forward=mano_forward, load_mano_consts=jax_mano.load_mano_consts))
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_make_batch_with_normals_and_fps_equals_jax(variant):
+    """Normals appended to the clouds and the host FPS reordering, drawn
+    from each sample's stream after both hands, on the same meshes (the
+    JAX pipeline given the port's MANO): every key bit for bit."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(native, "available", lambda: False)
+        _port_meshes(mp)
+        want = jax_make_batch(JaxConfig(**SMALL, **variant), 2, seed=5)
+    got = port.make_batch(port.Config(**SMALL, **variant), 2, seed=5)
+    assert sorted(got) == sorted(want) == sorted(BATCH_KEYS)
+    assert got["cloud"].shape[-1] == variant.get("input_feature_num", 3)
+    assert got["valid"].sum() > 0
+    for key in want:
+        assert got[key].dtype == want[key].dtype, key
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_make_batch_with_normals_and_fps_matches_jax(variant):
+    """The same against the JAX pipeline on its own meshes, whose depths
+    differ from the port's by float32 rounding (``BATCH_TOL``).  Two inputs
+    to the clouds are sensitive to such a last-bit difference:
+
+    - at res 64 (focal length 80 px) det(A^T A) of the normals' plane fit
+      is mostly over the guard's 1e-5, and the solve's condition number
+      (~1e4) amplifies it: the normals agree within 2e-3, the tolerance of
+      the JAX package's own host-against-device normals check;
+    - FPS on the synthetic hands' 8x8-pixel blocks of equal depth meets
+      exact distance ties, which the rounding breaks in another order: with
+      FPS the clouds hold the same points (rows equal as sets), ordered
+      otherwise."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(native, "available", lambda: False)
+        want = jax_make_batch(JaxConfig(**SMALL, **variant), 2, seed=5)
+    got = port.make_batch(port.Config(**SMALL, **variant), 2, seed=5)
+    fps = variant.get("sample_strategy") == "FPS"
+    for key in want:
+        assert got[key].shape == want[key].shape, key
+        assert got[key].dtype == want[key].dtype, key
+        if key in ("cloud", "choose") and fps:
+            continue
+        g, w = got[key], want[key]
+        if key == "cloud" and g.shape[-1] == 6:
+            np.testing.assert_allclose(g[..., 3:], w[..., 3:], atol=2e-3)
+            g, w = g[..., :3], w[..., :3]
+        np.testing.assert_allclose(g, w, err_msg=key, **BATCH_TOL)
+        if key in EXACT_KEYS:
+            np.testing.assert_array_equal(g, w, err_msg=key)
+    if fps:
+        for b in range(2):
+            for h in range(2):
+                rows = lambda d: np.concatenate(
+                    [d["choose"][b, h, :, None].astype(np.float64),
+                     d["cloud"][b, h, :, :3]], axis=1)
+                g, w = rows(got), rows(want)
+                g, w = g[np.lexsort(g.T[::-1])], w[np.lexsort(w.T[::-1])]
+                np.testing.assert_array_equal(g[:, 0], w[:, 0])
+                np.testing.assert_allclose(g[:, 1:], w[:, 1:], **BATCH_TOL)
 
 
 @pytest.mark.parametrize("train", [True, False])
