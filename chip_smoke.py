@@ -88,7 +88,26 @@ Phases, each of which fails the run:
    solve where it is not, with the share of points whose guard takes the
    other branch, and each one's ms a call; the CLI with ``--sample_strategy FPS
    --input_feature_num 6``: ``--mode train`` 2 steps, then ``--mode
-   test``.
+   test``;
+12. (run after phase 11; its CLI part inside phase 7, on that tree) the
+   HandNet options at the full width of the default ``Config``: (a)
+   ``photometric_loss=True``: the train step at batch 8 in bf16 (launches
+   ``knn_group_xyz`` and ``group_feat`` once), s a step beside the step
+   without the photometric terms, the peak of
+   ``torch.cuda.max_memory_allocated`` (under the card's 80 GB) and the
+   renders' share of the step, and a float32 step at batch 2 on the card
+   against the CPU (the CPU replaying the card's face ids, neighbours and
+   activations), the photometric and silhouette terms and the texture and
+   light heads' gradients printed; (b) ``patch_heads``, ``s2d_stem`` and
+   ``use_img_attn`` together: the eval step (``sa_group_l1`` 1,
+   ``sa_group_l2`` 1, ``sa_mlp_max`` 2) and the serving step (``knn`` 2,
+   ``fused_bottleneck_s1`` 8) at batch 8, each in float32 on the card
+   against the CPU, and the patch heads against the full-map heads at the
+   centers on the card; (c) the eval step with ``knn_method="approx"`` (no
+   kernel) likewise, the CPU replaying the card's bf16 selections; (d) the
+   CLI with ``--photometric_loss --image_summary --image_summary_every 1``
+   for 2 train steps: a (4 * 384, 3 * 384, 3) grid a step.  Each
+   sub-phase prints its seconds.
 
 TF32 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``), so every float32 number is true
@@ -1056,14 +1075,20 @@ def train_check_phase(cfg, dev):
     replays the card's neighbour selection (the kernels' own agreement is
     checked bit for bit in the kernel phase) and every ReLU and leaky-ReLU
     decision in the model's modules (the encoder, PointNet++, layers,
-    ResNet and mesh decoder), and the flips are counted and printed."""
+    ResNet, attention and mesh decoder), and the flips are counted and
+    printed.  With ``photometric_loss`` the renderer's depth test likewise
+    picks a pixel's face from float32 vertices that differ in the last bit
+    (a pixel on an edge), so the CPU replays the card's face ids too; the
+    photometric terms and the texture and light heads' gradients are
+    printed."""
     import types
     import torch
     import torch.nn.functional as F
     import pdfnet_tpu_torch as port
-    from pdfnet_tpu_torch.models import (encoder, gcn_decoder, layers,
-                                         pointnet, resnet)
+    from pdfnet_tpu_torch.models import (attention, encoder, gcn_decoder,
+                                         layers, pointnet, resnet)
     from pdfnet_tpu_torch.ops import grouping, sa
+    from pdfnet_tpu_torch.render import rasterizer
 
     c = cfg.replace(compute_dtype="float32", freeze_bn_stats=True,
                     dropout=0.0)
@@ -1086,7 +1111,20 @@ def train_check_phase(cfg, dev):
         ns = {n: getattr(F, n) for n in dir(F) if not n.startswith("_")}
         ns.update(relu=act, leaky_relu=act)
         return types.SimpleNamespace(**ns)
-    act_modules = (encoder, gcn_decoder, layers, pointnet, resnet)
+    act_modules = (attention, encoder, gcn_decoder, layers, pointnet, resnet)
+    depth_test, fids, fid_flips = rasterizer._depth_test, [], [0, 0]
+
+    def record_fid(*a, **k):
+        fid = depth_test(*a, **k)
+        fids.append(fid.cpu())
+        return fid
+
+    def replay_fid(*a, **k):
+        card = fids.pop(0)
+        fid_flips[0] += int((depth_test(*a, **k) != card).sum())
+        fid_flips[1] += card.numel()
+        return card
+
     wrappers = {"knn_group_xyz": lambda out: (out[0], out[1]),
                 "group_feat": lambda out: (out[2], out[1]),
                 "knn": lambda out: (out[0], out[1])}
@@ -1118,12 +1156,14 @@ def train_check_phase(cfg, dev):
             patches = [(grouping, n, recording(n)) for n in wrappers]
             patches += [(m, "F", functional(record_relu))
                         for m in act_modules]
+            patches.append((rasterizer, "_depth_test", record_fid))
         else:
             patches = [(grouping, "knn_plain", replay),
                        (sa, "knn_plain", replay),
                        (grouping, "knn", replay_knn)]
             patches += [(m, "F", functional(replay_relu))
                         for m in act_modules]
+            patches.append((rasterizer, "_depth_test", replay_fid))
         saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
         try:
             for m, n, fn in patches:
@@ -1136,9 +1176,13 @@ def train_check_phase(cfg, dev):
         runs.append(({k: v.cpu() for k, v in stats.items()},
                      {n: p.grad.cpu() for n, p in model.named_parameters()
                       if p.grad is not None}))
-    check(not chosen and not relu_masks,
-          "the CPU step grouped or ran an activation fewer times than the "
-          "card's")
+    check(not chosen and not relu_masks and not fids,
+          "the CPU step grouped, ran an activation or rendered fewer times "
+          "than the card's")
+    if fid_flips[1]:
+        print(f"train step [f32, batch 2]: the CPU's own depth test picks "
+              f"another face than the card's at {fid_flips[0]} of "
+              f"{fid_flips[1]} pixels; the CPU step replays the card's")
     print(f"train step [f32, batch 2]: the CPU's own neighbour selection "
           f"differs from the card's in {flips[0]} of {flips[1]} slots "
           f"(float32 ties and radius crossings), its ReLU decisions in "
@@ -1155,6 +1199,10 @@ def train_check_phase(cfg, dev):
               f"{w.item()} on the CPU")
     print(f"train step [f32, batch 2] card vs cpu: {len(want_s)} loss terms "
           f"within {LOSS_TOL} (worst relative error {worst:.3e})")
+    for key in ("photometric_loss", "seg_loss"):
+        if key in want_s:
+            print(f"train step [f32, batch 2] {key}: card "
+                  f"{got_s[key].item():.6e}, cpu {want_s[key].item():.6e}")
     check(sorted(got_g) == sorted(want_g),
           "the card and the CPU reach different parameters")
     errs = {}
@@ -1169,6 +1217,12 @@ def train_check_phase(cfg, dev):
     worst = sorted(errs, key=errs.get, reverse=True)[:5]
     print(f"train step [f32, batch 2] card vs cpu: gradient error / scale, "
           f"worst: {', '.join(f'{n} {errs[n]:.3e}' for n in worst)}")
+    heads = [n for n in errs if n.startswith(("encoder.head_texture",
+                                              "encoder.head_light"))]
+    if heads:
+        print(f"train step [f32, batch 2] card vs cpu: texture and light "
+              f"heads' gradient error / scale: "
+              f"{', '.join(f'{n} {errs[n]:.3e}' for n in heads)}")
     check(errs[worst[0]] <= GRAD_TOL,
           f"f32 train step: gradient of {worst[0]} differs by "
           f"{errs[worst[0]]:.3e} of its scale")
@@ -1744,6 +1798,282 @@ def normals_cli_phase(tree: str, work: str) -> None:
           f"metrics {vals}")
 
 
+# ---- phase 12 (run after phase 11): the HandNet options ---------------------
+
+PHOTOMETRIC = dict(photometric_loss=True)
+# the eval step's and the serving step's graph options, all three together
+GRAPH_OPTIONS = dict(patch_heads=True, s2d_stem=True, use_img_attn=True)
+# the photometric train step launches the train grouping kernels as the
+# default one does; the options' eval step the fused SA kernels, their
+# serving step (knn_method="pallas", fused_trunk) knn and the fused blocks;
+# knn_method="approx" no kernel
+PHOTOMETRIC_LAUNCHES = {"knn_group_xyz": 1, "group_feat": 1}
+OPTIONS_EVAL_LAUNCHES = {"sa_group_l1": 1, "sa_group_l2": 1, "sa_mlp_max": 2}
+OPTIONS_SERVE_LAUNCHES = {"knn": 2, "fused_bottleneck_s1": 8}
+# the patch heads against the full-map heads gathered at the centers, on the
+# card in float32: the same sums by two convolution algorithms, relative to
+# each head's largest value
+PATCH_HEAD_TOL = 1e-4
+CARD_MEMORY = 80e9
+
+
+def photometric_phase(card, cfg, dev) -> None:
+    """(a) ``photometric_loss=True``: the train step at batch 8 in bf16
+    once through the user's entry points (its launches), then s a step, the
+    peak of ``torch.cuda.max_memory_allocated`` (it must fit the card), the
+    renders' device time (CUDA events around each ``render_two_hands`` of
+    the loss: their forward) and the step without the photometric terms
+    beside it; then a float32 step at batch 2 on the card against the CPU
+    (``train_check_phase``, face ids replayed)."""
+    import torch
+    import pdfnet_tpu_torch as port
+    from pdfnet_tpu_torch.train import loss as loss_mod
+
+    pcfg = cfg.replace(**PHOTOMETRIC)
+    consts = port.load_loss_consts(dev)
+    host = port.make_batch(pcfg, BATCH, seed=0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    rates = {}
+    for label, c in (("photometric", pcfg), ("without photometric", cfg)):
+        model = port.build_model(c, device=dev)
+        state = port.create_train_state(c, model)
+        step = port.make_train_step(c, model, consts)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        run = lambda: step(state, batch, 0, port.lr_at_epoch(c, 0), gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        if label == "photometric":
+            reset_port_launches()
+            stats = run()
+            torch.cuda.synchronize()
+            check_launches(f"photometric train step [bf16, batch {BATCH}]",
+                           PHOTOMETRIC_LAUNCHES)
+            check(bool(torch.isfinite(stats["loss"])) and float(
+                stats["photometric_loss"]) > 0, f"photometric train step: "
+                f"loss {float(stats['loss'])}, photometric_loss "
+                f"{float(stats['photometric_loss'])}")
+            print(f"photometric train step [bf16, batch {BATCH}]: loss "
+                  f"{float(stats['loss']):.2f}, photometric_loss "
+                  f"{float(stats['photometric_loss']):.5f}, seg_loss "
+                  f"{float(stats['seg_loss']):.5f}")
+        run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        spans = []
+        render = loss_mod.render_two_hands
+
+        def timed_render(*a, **k):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = render(*a, **k)
+            ev[1].record()
+            spans.append(ev)
+            return out
+        t0 = time.perf_counter()
+        n = 3
+        run_patched([(loss_mod, "render_two_hands", timed_render)],
+                    lambda: [run() for _ in range(n)])
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / n
+        render_ms = sum(a.elapsed_time(b) for a, b in spans) / n
+        rates[label] = sec
+        print(f"train step [bf16, batch {BATCH}, {label}]: {sec:.4f} s a "
+              f"step; peak memory allocated {peak / 2**30:.2f} GiB; renders "
+              f"(forward, {len(spans) // n} a step) {render_ms:.2f} ms a "
+              f"step = {render_ms / 1e3 / sec:.3f} of the step ({card})")
+        check(peak < CARD_MEMORY, f"train step [{label}]: peak "
+              f"{peak / 1e9:.1f} GB does not fit the card")
+        del model, state, step
+    extra = rates["photometric"] - rates["without photometric"]
+    print(f"photometric train step: {rates['photometric']:.4f} s against "
+          f"{rates['without photometric']:.4f} s without the photometric "
+          f"terms (the texture and light heads, the renders and their "
+          f"backward: {extra:.4f} s a step)")
+    train_check_phase(pcfg, dev)
+
+
+def check_patch_heads(ocfg, state, img, dev) -> None:
+    """On the card in float32: the patch heads at the decoded centers
+    against the full-map heads of the same weights gathered there."""
+    import torch
+    import pdfnet_tpu_torch as port
+    from pdfnet_tpu_torch.ops.gather import gather_pixels
+
+    heads = {}
+    for patch in (True, False):
+        c = ocfg.replace(compute_dtype="float32", patch_heads=patch,
+                         **PHOTOMETRIC)
+        model = port.HandNet(c).to(dev).eval()
+        # the photometric heads keep the first model's random weights
+        model.load_state_dict(state, strict=False)
+        state = model.state_dict()
+        with torch.inference_mode():
+            _, _, ret, ind, _ = model.encoder.image_phase(
+                img.permute(0, 3, 1, 2), aux=True)
+        heads[patch] = (ret, ind)
+        del model
+    (rp, ind), (rf, ind_f) = heads[True], heads[False]
+    check(torch.equal(ind, ind_f), "patch heads: the centers differ")
+    worst = 0.0
+    for h, v in rp.items():
+        if h == "hm":
+            continue
+        want = gather_pixels(rf[h].permute(0, 2, 3, 1), ind)
+        scale = max(1e-6, want.abs().max().item())
+        err = (v - want).abs().max().item() / scale
+        worst = max(worst, err)
+        check(err <= PATCH_HEAD_TOL, f"patch head {h}: {err:.3e} of scale "
+              f"from the full-map head at the centers")
+    print(f"patch heads [f32, batch {img.shape[0]}] on the card: "
+          f"{', '.join(h for h in rp if h != 'hm')} at the centers equal "
+          f"the full-map heads within {worst:.3e} of scale (<= "
+          f"{PATCH_HEAD_TOL})")
+
+
+def graph_options_phase(card, cfg, dev) -> None:
+    """(b) ``patch_heads``, ``s2d_stem`` and ``use_img_attn`` together: the
+    eval step (``pallas_sa``) and the serving step (``knn_method="pallas"``,
+    ``fused_trunk``) at batch 8 in bf16 once (their launches and outputs),
+    each in float32 on the card against the CPU at batch 1, and the patch
+    heads against the full-map heads on the card; (c) the eval step with
+    ``knn_method="approx"`` (no kernel) likewise, the CPU replaying the
+    card's bf16 selections."""
+    import torch
+    import pdfnet_tpu_torch as port
+    from pdfnet_tpu_torch.ops import grouping
+
+    ocfg = cfg.replace(**GRAPH_OPTIONS)
+    res, n = cfg.default_resolution, cfg.sample_num
+    consts = port.load_loss_consts(dev)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in bench_batch(BATCH, res, n).items()}
+
+    t0 = time.perf_counter()
+    model = port.build_model(ocfg, device=dev)
+    jitter_bn_(model, seed=7)
+    reset_port_launches()
+    out = port.make_eval_step(ocfg, model, consts)(batch)
+    torch.cuda.synchronize()
+    check_launches(f"options eval step [bf16, batch {BATCH}]",
+                   OPTIONS_EVAL_LAUNCHES)
+    check_outputs("options eval step", out, BATCH)
+    state = model.state_dict()
+    c32 = ocfg.replace(compute_dtype="float32")
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        m = port.HandNet(c32).to(d).eval()
+        m.load_state_dict({k: v.to(d) for k, v in state.items()})
+        got = port.make_eval_step(c32, m, port.load_loss_consts(d))(
+            {k: v[:1].to(d) for k, v in batch.items()})
+        runs.append({k: v.cpu() for k, v in got.items()})
+    compare_steps("options eval step [f32, batch 1]", *runs)
+    check_patch_heads(ocfg, state, batch["input"][:2], dev)
+    print(f"options eval phase: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    scfg = ocfg.replace(knn_method="pallas", fused_trunk=True)
+    model = port.HandNet(scfg).to(dev).eval()
+    model.load_state_dict(state)
+    split_masks_(model, batch["input"])
+    step = make_serve_step(scfg, model, consts,
+                           torch.Generator(device=dev).manual_seed(0))
+    reset_port_launches()
+    out, _ = step(batch)
+    torch.cuda.synchronize()
+    check_launches(f"options serve step [bf16, batch {BATCH}]",
+                   OPTIONS_SERVE_LAUNCHES)
+    check_outputs("options serve step", out, BATCH)
+    serve_check_phase(scfg, model.state_dict(), batch, dev)
+    print(f"options serving phase: {time.perf_counter() - t0:.1f} s")
+    del model, step
+
+    # (c) knn_method="approx": the bf16 selection in plain PyTorch
+    t0 = time.perf_counter()
+    acfg = cfg.replace(knn_method="approx")
+    model = port.build_model(acfg, device=dev)
+    jitter_bn_(model, seed=8)
+    reset_port_launches()
+    out = port.make_eval_step(acfg, model, consts)(batch)
+    torch.cuda.synchronize()
+    check_launches(f"approx eval step [bf16, batch {BATCH}]", {})
+    check_outputs("approx eval step", out, BATCH)
+    state = model.state_dict()
+    a32 = acfg.replace(compute_dtype="float32")
+    select, chosen, flips = grouping.approx_select, [], [0, 0]
+
+    def record(d2, k):
+        got = select(d2, k)
+        chosen.append(tuple(t.cpu() for t in got))
+        return got
+
+    def replay(d2, k):
+        own = select(d2, k)
+        card = chosen.pop(0)
+        flips[0] += int((own[1] != card[1]).sum())
+        flips[1] += own[1].numel()
+        return card
+    runs = []
+    for i, d in enumerate((dev, torch.device("cpu"))):
+        m = port.HandNet(a32).to(d).eval()
+        m.load_state_dict({k: v.to(d) for k, v in state.items()})
+        st = port.make_eval_step(a32, m, port.load_loss_consts(d))
+        got = run_patched([(grouping, "approx_select",
+                            record if i == 0 else replay)],
+                          lambda: st({k: v[:1].to(d)
+                                      for k, v in batch.items()}))
+        runs.append({k: v.cpu() for k, v in got.items()})
+    check(not chosen, "approx: the CPU selected fewer times than the card")
+    print(f"approx eval step [f32, batch 1]: the CPU's own bf16 selection "
+          f"differs from the card's in {flips[0]} of {flips[1]} slots; the "
+          f"CPU step replays the card's")
+    compare_steps("approx eval step [f32, batch 1]", *runs)
+    print(f"approx phase: {time.perf_counter() - t0:.1f} s")
+
+
+def options_phase(card, cfg, dev) -> None:
+    """Phase 12: the photometric train step, then the graph options and
+    ``approx``, each sub-phase timed."""
+    t0 = time.perf_counter()
+    photometric_phase(card, cfg, dev)
+    print(f"photometric phase: {time.perf_counter() - t0:.1f} s")
+    graph_options_phase(card, cfg, dev)
+
+
+def options_cli_phase(tree: str, work: str) -> None:
+    """(d) ``cli.main --mode train --photometric_loss --image_summary
+    --image_summary_every 1`` for 2 steps on phase 7's H2O-format tree:
+    the grid file of each step written, (4 * res, 3 * res, 3) uint8 at
+    batch 8 (input | prediction | ground truth of the first 4 samples)."""
+    import cv2
+    import torch
+    from pdfnet_tpu_torch.cli.main import main as cli_main
+
+    out = os.path.join(work, "out_photometric")
+    t0 = time.perf_counter()
+    trainer = cli_main(["--mode", "train", "--num_epochs", "1", "--steps",
+                        "2", "--eval_every", "0", "--save_every", "0",
+                        "--cache_path", tree, "--pre_fix", tree,
+                        "--output_path", out, "--batch_size", str(BATCH),
+                        "--photometric_loss", "--image_summary",
+                        "--image_summary_every", "1"])
+    torch.cuda.synchronize()
+    res = trainer.cfg.default_resolution
+    check(trainer.state.step == 2, "cli photometric train: not 2 steps")
+    grids = sorted(os.path.join(d, f) for d, _, fs in os.walk(out)
+                   for f in fs if f.endswith(".png"))
+    shapes = [cv2.imread(g).shape for g in grids]
+    check([os.path.basename(g) for g in grids] == ["train_00000001.png",
+                                                   "train_00000002.png"]
+          and all(sh == (min(4, BATCH) * res, 3 * res, 3)
+                  for sh in shapes),
+          f"cli photometric train: grids {grids} of shapes {shapes}")
+    print(f"cli --photometric_loss --image_summary: 2 steps, grids "
+          f"{[os.path.basename(g) for g in grids]} of {shapes[0]}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del trainer
+
+
 # ---- phase 7: the train/eval CLI on an H2O-format tree ----------------------
 
 # the mini tree: H2O's frame size and intrinsics, records per split (10 test
@@ -1962,6 +2292,7 @@ def cli_phase(card, dev) -> None:
     print(f"cli test mode [f32, 2 records] card agrees with cpu: worst error "
           f"/ scale {worst:.3e} <= {STEP_TOL}")
     normals_cli_phase(tree, work)
+    options_cli_phase(tree, work)
     # keep the score files; the tree and the checkpoints (~300 MB each) go
     keep = os.path.join(OUT_DIR, "cli_scores")
     os.makedirs(keep, exist_ok=True)
@@ -2359,6 +2690,7 @@ def main() -> int:
     launches.update({n: v for n, v in serve_phase(args, card, cfg, dev).items()
                      if n in SERVE_KERNELS or n == "fused_bottleneck_s2"})
     normals_phase(card, cfg, dev)
+    options_phase(card, cfg, dev)
     cli_phase(card, dev)
     cli_serving_phases(card, dev)
 

@@ -13,8 +13,7 @@ Prints ONE JSON line on stdout, ``{"metric", "value", "unit",
 run on stderr.  ``vs_baseline`` is null: ``bench.py`` divides by its own
 baselines, a throughput target set for a TPU and a guess at the
 reference's GPU recipe; neither is a figure measured for this port or this
-device.  The flags and defaults are ``bench.py``'s; the port refuses
-``--s2d_stem`` and ``--knn approx`` by name (``check_config``).
+device.  The flags and defaults are ``bench.py``'s.
 
 The loop is ``bench.py``'s: ``warmup`` calls, a synchronize, ``iters``
 calls timed on the host clock, a synchronize.  The weights are random,
@@ -45,7 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="fused resnet blocks at eval")
     ap.add_argument("--s2d_stem", default=False,
                     action=argparse.BooleanOptionalAction,
-                    help="stem conv via space-to-depth (refused by the port)")
+                    help="stem conv via space-to-depth (exact)")
     ap.add_argument("--self_contained", action="store_true",
                     help="bench the single-pass RGB-D serving path "
                          "(infer_rgbd: no host clouds, mask->cloud on the "

@@ -10,10 +10,10 @@ Usage:
   python -m pdfnet_tpu_torch.cli.main --cpu ...   # on the CPU, not the card
 
 Runs on one CUDA device unless ``--cpu`` is given.  The flags are the JAX
-CLI's, generated from the port's ``Config``; the values whose path the port
-lacks are refused by name when the flags are parsed (``check_config``,
-``check_trainer_config``, the dataset's), as are the multi-process flags
-(``--coordinator``, ``--num_processes``, ``--process_id``) and
+CLI's, generated from the port's ``Config``.  Refused by name when the flags
+are parsed: ``--arch csp_*`` and ``--zero1_opt_sharding``, whose path the
+port lacks (``check_config``, ``check_trainer_config``), the multi-process
+flags (``--coordinator``, ``--num_processes``, ``--process_id``) and
 ``--no-depth``.  Writes ``{output_path}/{dataset}-val.txt`` (val and test)
 and ``{output_path}/hand_poses.json`` (test), the train logs under
 ``{output_path}/logs`` and the checkpoints under
@@ -47,15 +47,15 @@ _HELP = {
                       "reference's multi-GPU semantics); 0/1 = global-batch "
                       "(synced) BN",
     "patch_heads": "evaluate non-hm CenterNet heads only at the two hand "
-                   "centers (not in the port yet)",
+                   "centers (exact, big FLOP cut for wh/params/texture/light "
+                   "consumers)",
     "profile_dir": "capture a torch.profiler trace window here (Chrome "
                    "trace, view in Perfetto)",
     "image_summary": "write input|pred|gt render grids every "
-                     "image_summary_every steps (needs the rasterizer: not "
-                     "in the port yet)",
+                     "image_summary_every steps",
     "input_feature_num": "3 = xyz point clouds, 6 = xyz+surface normals",
     "photometric_loss": "differentiable-render photometric/silhouette loss "
-                        "terms (not in the port yet)",
+                        "terms (+texture/light heads)",
     "off": "train the off_hm/off_lms sub-pixel offset heads",
     "freeze_bn_stats": "BatchNorm uses running statistics even in training "
                        "(frozen-BN fine-tuning)",

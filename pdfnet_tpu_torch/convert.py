@@ -14,6 +14,9 @@ chosen by the type of the port module at that path, with the rules of
   LayerNorm                    scale/bias -> weight/bias
   Embedding                    embedding -> weight
   L2Norm                       weight -> weight
+  any other module             a bare ``self.param`` leaf (``ImgAttn``'s
+                               ``pos_emb``) -> the ``nn.Parameter`` of the
+                               same name, unchanged
 
 Every flax leaf and every port parameter or running statistic must be used
 exactly once, or the call raises.  ``params_from_flax`` applies the same
@@ -80,11 +83,15 @@ def _leaves(tree, path=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
         yield path, np.asarray(tree)
 
 
-def _rule(module: nn.Module):
+def _leaf_rule(module: nn.Module, collection: str, leaf: str):
+    """(port leaf, transform) for the flax leaf ``collection/leaf`` of the
+    port module ``module``, or None."""
     for cls, rule in _RULES:
         if isinstance(module, cls):
-            return rule
-    raise ValueError(f"convert: no layout rule for {type(module).__name__}")
+            return rule.get((collection, leaf))
+    if collection == "params" and leaf in module._parameters:
+        return leaf, _same
+    return None
 
 
 def _convert(variables, model: nn.Module) -> Dict[str, torch.Tensor]:
@@ -101,12 +108,12 @@ def _convert(variables, model: nn.Module) -> Dict[str, torch.Tensor]:
         except AttributeError as e:
             raise ValueError(f"convert: flax module {name!r} has no "
                              "counterpart in the port") from e
-        rule = _rule(module)
-        if (collection, leaf) not in rule:
+        rule = _leaf_rule(module, collection, leaf)
+        if rule is None:
             raise ValueError(f"convert: unexpected leaf {collection}/{name}/"
                              f"{leaf} for {type(module).__name__}")
-        port_leaf, tf = rule[(collection, leaf)]
-        key = f"{name}.{port_leaf}"
+        port_leaf, tf = rule
+        key = f"{name}.{port_leaf}" if name else port_leaf
         if key in out:
             raise ValueError(f"convert: {key} set twice")
         ref = target[key]
@@ -126,13 +133,16 @@ def _require(out: Dict[str, torch.Tensor], keys, what: str) -> None:
                          f"the flax tree, e.g. {missing[:5]}")
 
 
-def from_flax(variables, model: nn.Module) -> Dict[str, torch.Tensor]:
-    """The port's ``state_dict`` for ``model`` from flax ``variables``."""
+def from_flax(variables, model: nn.Module,
+              keep: Tuple[str, ...] = ()) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` for ``model`` from flax ``variables``.
+    Entries whose name contains one of ``keep`` may be absent from the
+    tree; they keep the model's values."""
     out = _convert(variables, model)
     target = model.state_dict()
     # the step counters of BatchNorm have no flax counterpart
-    _require(out, [k for k in target if not k.endswith("num_batches_tracked")],
-             "entries")
+    _require(out, [k for k in target if not k.endswith("num_batches_tracked")
+                   and not any(s in k for s in keep)], "entries")
     for k, v in target.items():
         out.setdefault(k, v.clone())
     return out

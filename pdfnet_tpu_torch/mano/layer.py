@@ -78,6 +78,12 @@ def pca_to_axis(consts: ManoConsts, pca: torch.Tensor) -> torch.Tensor:
     return torch.matmul(pca, consts.hands_components[:n]) + consts.hands_mean
 
 
+def axis_to_pca(consts: ManoConsts, axis: torch.Tensor) -> torch.Tensor:
+    """45-dim axis-angle (B, 45) -> its 45 PCA pose coefficients."""
+    inv = torch.linalg.inv(consts.hands_components)
+    return torch.matmul(axis - consts.hands_mean, inv)
+
+
 def mano_forward(consts: ManoConsts, root_rot: torch.Tensor,
                  pose: torch.Tensor, shape: torch.Tensor,
                  trans: Optional[torch.Tensor] = None,
@@ -140,3 +146,20 @@ def mano_forward(consts: ManoConsts, root_rot: torch.Tensor,
         t = trans[:, None, :]
         v_out, j_out = v_out + t, j_out + t
     return v_out, j_out
+
+
+def vertex_normals(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
+    """Area-weighted unit vertex normals.  verts (B, V, 3), faces (F, 3)
+    integer (a tensor or an array).
+
+    Equivalent to ManoRender.Compute_norm's one-ring accumulation
+    (Mano_render.py:265-284), as a scatter-add (``index_add``) of the face
+    normals over the faces' vertices.
+    """
+    faces = torch.as_tensor(faces, device=verts.device).long()
+    v0, v1, v2 = (verts[:, faces[:, k]] for k in range(3))
+    fn = torch.linalg.cross(v0 - v1, v1 - v2, dim=-1)          # (B, F, 3)
+    vn = torch.zeros_like(verts)
+    for k in range(3):
+        vn = vn.index_add(1, faces[:, k], fn)
+    return vn / (torch.linalg.vector_norm(vn, dim=-1, keepdim=True) + 1e-8)

@@ -1,16 +1,17 @@
 """Attention modules of the dual-hand mesh decoder (port of
-``pdfnet_tpu/models/attention.py``; reference self_attn.py:36-86 and
-inter_attn.py:38-125).
+``pdfnet_tpu/models/attention.py``; reference self_attn.py:36-86,
+inter_attn.py:38-125 and img_attn.py:38-113).
 
-Token counts are tiny (<= 252 vertices), so attention is a plain matmul +
-softmax, like the JAX einsums.  Dropout (on the attention weights and on the
-projected output, ``attention.py:51,54,104-105``) acts at train time only.
-``ImgAttn`` (``use_img_attn``, off by default) is later work.
+Token counts are tiny (<= 252 vertices + 36 grid tokens), so attention is a
+plain matmul + softmax, like the JAX einsums.  Dropout (on the attention
+weights and on the projected output, ``attention.py:51,54,104-105``) acts at
+train time only.  ``ImgAttn`` runs only under ``Config.use_img_attn``.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from pdfnet_tpu_torch.models.layers import Dropout, LN_EPS, MLPResBlock
@@ -90,3 +91,30 @@ class InterAttn(nn.Module):
         feat_R2L = self._cross(Lq, Rk, Rv)
         feat_L2R = self._cross(Rq, Lk, Lv)
         return self.ffL(Lf + feat_R2L), self.ffR(Rf + feat_L2R)
+
+
+class ImgAttn(nn.Module):
+    """Patchify an image feature map into grid tokens, which the vertices
+    attend (``attention.py:137-166``): a strided conv, ReLU, the raw
+    ``pos_emb`` parameter, self-attention over the grid, a Linear to the
+    vertex width, then self-attention over vertices + grid; returns the
+    vertex tokens."""
+
+    def __init__(self, img_size: int, img_f_dim: int, grid_size: int,
+                 grid_f_dim: int, verts_f_dim: int, n_heads: int = 4,
+                 dropout: float = 0.01):
+        super().__init__()
+        patch = img_size // grid_size
+        self.proj = nn.Conv2d(img_f_dim, grid_f_dim, patch, stride=patch)
+        self.pos_emb = nn.Parameter(torch.zeros(grid_size * grid_size,
+                                                grid_f_dim))
+        self.grid_attn = SelfAttn(grid_f_dim, n_heads, dropout)
+        self.fc = nn.Linear(grid_f_dim, verts_f_dim)
+        self.joint_attn = SelfAttn(verts_f_dim, n_heads, dropout)
+
+    def forward(self, img: torch.Tensor, verts_f: torch.Tensor) -> torch.Tensor:
+        """img (B, img_f_dim, img_size, img_size), verts_f (B, V, D)."""
+        grid = F.relu(self.proj(img)).flatten(2).transpose(1, 2)  # (B, G, C)
+        grid = self.fc(self.grid_attn(grid + self.pos_emb[None]))
+        V = verts_f.shape[1]
+        return self.joint_attn(torch.cat([verts_f, grid], dim=1))[:, :V]

@@ -10,6 +10,8 @@ builds the clouds from the predicted mask.  ``aux=False`` skips what the
 eval outputs never read (the hms/mask decoders and every head but ``hm``):
 the JAX eval step drops the same work by dead-code elimination under
 ``jit``.  ``need_mask`` keeps the mask decoder for the cloud builder.
+``patch_heads`` computes the non-hm heads on the 3x3 patches at the two
+centers (``encoder.py:124-147``): ``ret[head]`` is then (B, 2, C).
 """
 
 from __future__ import annotations
@@ -31,6 +33,18 @@ from pdfnet_tpu_torch.ops.heatmap import clamped_sigmoid, decode_centers
 _IS_HM = lambda h: "hm" in h or "heatmap" in h or "handmap" in h
 
 
+def center_patches(x0: torch.Tensor, ind: torch.Tensor,
+                   size: int) -> torch.Tensor:
+    """The zero-padded ``size`` x ``size`` windows of the NCHW map ``x0``
+    centered at the two hand centers ``ind`` (B, 2), as (2B, C, size,
+    size): the input of the convolutions that stand in for full-map ones
+    at those centers (the center features and, under ``patch_heads``, the
+    non-hm heads)."""
+    B, C = x0.shape[:2]
+    p = gather_patches(x0.permute(0, 2, 3, 1), ind, size)  # (B, 2, s, s, C)
+    return p.reshape(B * 2, size, size, C).permute(0, 3, 1, 2)
+
+
 class FPNEncoder(nn.Module):
     def __init__(self, heads: Dict[str, int], fmap_dim: int = 128,
                  global_feature_dim: int = 256, heatmap_dim: int = 21,
@@ -40,12 +54,14 @@ class FPNEncoder(nn.Module):
                  input_feature_num: int = 3,
                  raw_center_decode: bool = False,
                  compute_dtype: torch.dtype = torch.float32,
-                 knn_method: str = "pallas_sa", fused_trunk: bool = False):
+                 knn_method: str = "pallas_sa", fused_trunk: bool = False,
+                 s2d_stem: bool = False, patch_heads: bool = False):
         super().__init__()
         gd = global_feature_dim
         self.raw_center_decode = raw_center_decode
+        self.patch_heads = patch_heads
         self.e_conv1 = conv(3, 3, 3)
-        self.resnet = ResNet(fused_eval=fused_trunk)
+        self.resnet = ResNet(fused_eval=fused_trunk, s2d_stem=s2d_stem)
         self.p2 = conv(256, gd, 3, bias=True)
         # flax ConvTranspose 4x4/s2 padding="SAME" == torch padding 1 with
         # the kernel flipped (convert.from_flax flips it)
@@ -76,31 +92,35 @@ class FPNEncoder(nn.Module):
 
     def forward(self, img: torch.Tensor, cloud: torch.Tensor,
                 choose: torch.Tensor, ind: Optional[torch.Tensor] = None,
-                aux: bool = True):
+                aux: bool = True, need_fmaps: bool = False):
         """img (B, 3, H, W) normalized RGB, cloud (B, 2, N, 3 or 6), choose
         (B, 2, N), ind (B, 2) the hand centers' flat indices (the ground
         truth at train time) or None to decode them from the predicted
         heatmap, as the JAX module does at test time.
 
         Returns (hms, mask, ret, ind, img_fmaps, hms_fmaps, dp_fmaps) like the
-        JAX module; with ``aux=False`` hms, mask and both fmaps lists are
-        None and ``ret`` holds only the heatmap heads.
+        JAX module; with ``aux=False`` ``ret`` holds only the heatmap heads,
+        and hms, mask and both fmaps lists are None unless ``need_fmaps``
+        (the decoder's image attention reads the pyramids) runs the
+        decoders.
         """
-        hms, mask, ret, ind, cached = self.image_phase(img, ind, aux)
+        hms, mask, ret, ind, cached = self.image_phase(img, ind, aux,
+                                                       need_fmaps=need_fmaps)
         fuse = self.point_phase(cached, cloud, choose, ind)
         return (hms, mask, ret, ind, [fuse, cached["x2"], cached["x3"],
                                       cached["x4"]],
                 cached["hms_fmaps"], cached["dp_fmaps"])
 
     def image_phase(self, img: torch.Tensor, ind: Optional[torch.Tensor] = None,
-                    aux: bool = True, need_mask: bool = False):
+                    aux: bool = True, need_mask: bool = False,
+                    need_fmaps: bool = False):
         """Trunk, FPN, heads, center decode and decoders (``mode="image"``).
 
         Returns (hms, mask, ret, ind, cached); ``cached`` holds x0, the
         pyramid embeddings ``pw_emb``, the trunk stages x2..x4 and the
         decoder pyramids (None where skipped).  ``aux=False`` skips the
         decoders and the non-hm heads, ``need_mask`` then still runs the mask
-        decoder (hms and its pyramid stay None).
+        decoder (hms and its pyramid stay None), ``need_fmaps`` both.
         """
         pw_l0 = F.relu(self.e_conv1(img))
         stem, x4, x3, x2, x1 = self.resnet(img)
@@ -111,17 +131,27 @@ class FPNEncoder(nn.Module):
         p5 = self.p5_l2(self.p5(x1))
         x0 = F.relu(self.feat_bn(self.feat(torch.cat([p2, p3, p4, p5], 1))))
 
-        ret = {h: getattr(self, f"head_{h}")(x0) for h in self.head_names
-               if aux or _IS_HM(h)}
+        # the hm head always runs on the whole map (focal loss, center
+        # decode); the others are read only at the two centers, so under
+        # patch_heads they run on the 3x3 patches there: (B, 2, C)
+        full = [h for h in self.head_names
+                if _IS_HM(h) or (aux and not self.patch_heads)]
+        ret = {h: getattr(self, f"head_{h}")(x0) for h in full}
         if ind is None:
             hm = ret["hm"].detach().permute(0, 2, 3, 1)
             ind = decode_centers(hm if self.raw_center_decode
                                  else clamped_sigmoid(hm))
+        if aux and self.patch_heads:
+            p3 = center_patches(x0, ind, 3)                  # (2B, gd, 3, 3)
+            for h in self.head_names:
+                if not _IS_HM(h):
+                    y = getattr(self, f"head_{h}")(p3, patch=True)
+                    ret[h] = y.reshape(x0.shape[0], 2, -1)
 
         hms = mask = hms_fmaps = dp_fmaps = None
-        if aux:
+        if aux or need_fmaps:
             hms, hms_fmaps = self.hms_decoder(x1)
-        if aux or need_mask:
+        if aux or need_mask or need_fmaps:
             mask, dp_fmaps = self.dp_decoder(x1)
         cached = dict(x0=x0, pw_emb=[pw_l0, stem, x0], x2=x2, x3=x3, x4=x4,
                       hms_fmaps=hms_fmaps, dp_fmaps=dp_fmaps)
@@ -133,12 +163,10 @@ class FPNEncoder(nn.Module):
         ``image_phase``'s cache (``mode="point"``): the fused (B, 2, 1024)
         point feature."""
         x0 = cached["x0"]
-        B, gd, H0, W0 = x0.shape
+        B, _, H0, W0 = x0.shape
         # 5x5 input patches around each center stand in for the full-map
         # 3x3 convs (VALID on the zero-padded map, the same sums)
-        p = gather_patches(x0.permute(0, 2, 3, 1), ind, 5)   # (B, 2, 5, 5, gd)
-        p = p.reshape(B * 2, 5, 5, gd).permute(0, 3, 1, 2)
-        up0 = self.center_up0(p)                              # (2B, 512, 3, 3)
+        up0 = self.center_up0(center_patches(x0, ind, 5))     # (2B, 512, 3, 3)
         # the reference's second conv sees its own zero padding outside the
         # map, not values computed from the zero-extended patch
         yc = (ind // W0).reshape(B * 2).long()

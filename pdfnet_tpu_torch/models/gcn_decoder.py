@@ -11,7 +11,7 @@ train time only.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pdfnet_tpu_torch import assets
-from pdfnet_tpu_torch.models.attention import InterAttn
+from pdfnet_tpu_torch.models.attention import ImgAttn, InterAttn
 from pdfnet_tpu_torch.models.layers import Dropout, LN_EPS
 from pdfnet_tpu_torch.ops.chebconv import cheb_basis
 from pdfnet_tpu_torch.ops.geometry import orthographic_project
@@ -78,12 +78,15 @@ class GraphLayer(nn.Module):
 
 
 class DualGraphLayer(nn.Module):
-    """One pyramid level: pos-emb -> per-hand GCN -> cross-hand attention."""
+    """One pyramid level: pos-emb -> per-hand GCN -> (with ``img_attn``,
+    a tuple (img_size, img_f_dim, grid_size, grid_f_dim): each hand's image
+    attention) -> cross-hand attention."""
 
     def __init__(self, in_dim: int, out_dim: int, graph_L_left: np.ndarray,
                  graph_L_right: np.ndarray, graph_k: int = 2,
                  num_blocks: int = 4, n_heads: int = 4,
-                 dropout: float = 0.05):
+                 dropout: float = 0.05,
+                 img_attn: Optional[Tuple[int, int, int, int]] = None):
         super().__init__()
         V = graph_L_left.shape[0]
         self.pos_emb = nn.Embedding(V, in_dim)
@@ -91,24 +94,39 @@ class DualGraphLayer(nn.Module):
                                      num_blocks, dropout)
         self.graph_right = GraphLayer(in_dim, out_dim, graph_L_right, graph_k,
                                       num_blocks, dropout)
+        self.use_img_attn = img_attn is not None
+        if self.use_img_attn:
+            for side in ("left", "right"):
+                self.add_module(f"img_ex_{side}", ImgAttn(
+                    *img_attn, out_dim, n_heads, dropout))
         self.inter_attn = InterAttn(out_dim, n_heads, dropout)
 
-    def forward(self, Lf: torch.Tensor, Rf: torch.Tensor):
+    def forward(self, Lf: torch.Tensor, Rf: torch.Tensor,
+                img_f: Optional[torch.Tensor] = None):
         pos = self.pos_emb.weight[None]
         Lf = self.graph_left(Lf + pos)
         Rf = self.graph_right(Rf + pos)
+        if self.use_img_attn:
+            Lf = self.img_ex_left(img_f, Lf)
+            Rf = self.img_ex_right(img_f, Rf)
         return self.inter_attn(Lf, Rf)
 
 
 class MeshDecoder(nn.Module):
-    """Global hand features -> dual 778-vertex meshes, weak-perspective
-    params and a 3-vector absolute-root code per hand."""
+    """Global hand features (+ with ``use_img_attn`` the image pyramid) ->
+    dual 778-vertex meshes, weak-perspective params and a 3-vector
+    absolute-root code per hand."""
 
     def __init__(self, global_feature_dim: int = 1024,
                  gcn_in_dim: Sequence[int] = (512, 256, 128),
                  gcn_out_dim: Sequence[int] = (256, 128, 64),
                  graph_k: int = 2, num_blocks: int = 4, n_heads: int = 4,
-                 dropout: float = 0.05, img_size_px: int = 384):
+                 dropout: float = 0.05, img_size_px: int = 384,
+                 use_img_attn: bool = False,
+                 img_f_dims: Sequence[int] = (256, 256, 256),
+                 grid_f_dims: Sequence[int] = (256, 128, 64),
+                 img_sizes: Sequence[int] = (12, 24, 48),
+                 grid_sizes: Sequence[int] = (6, 6, 6)):
         super().__init__()
         gl, gr = assets.load_graph("left"), assets.load_graph("right")
         extras = assets.load_mesh_extras()
@@ -136,9 +154,12 @@ class MeshDecoder(nn.Module):
         self.gf_right = nn.Linear(global_feature_dim, gcn_in_dim[0] - 3)
         self.gf_right_ln = nn.LayerNorm(gcn_in_dim[0] - 3, eps=LN_EPS)
         for i in range(3):
+            img_attn = ((img_sizes[i], img_f_dims[i], grid_sizes[i],
+                         grid_f_dims[i]) if use_img_attn else None)
             self.add_module(f"level{i}", DualGraphLayer(
                 gcn_in_dim[i], gcn_out_dim[i], gl.laplacians[i],
-                gr.laplacians[i], graph_k, num_blocks, n_heads, dropout))
+                gr.laplacians[i], graph_k, num_blocks, n_heads, dropout,
+                img_attn))
         v_out = gl.laplacians[2].shape[0]                     # 252
         self.unsample = nn.Linear(v_out, 778, bias=False)
         self.coord_head = nn.Linear(gcn_out_dim[-1], 3)
@@ -151,7 +172,10 @@ class MeshDecoder(nn.Module):
         p = self.params_head(pooled)
         return p[:, 0], p[:, 1:], self.root_head(pooled)       # scale, t2d, root
 
-    def forward(self, gf_left: torch.Tensor, gf_right: torch.Tensor):
+    def forward(self, gf_left: torch.Tensor, gf_right: torch.Tensor,
+                fmaps: Optional[List[torch.Tensor]] = None):
+        """gf_* (B, 1024); ``fmaps`` the NCHW image pyramid that the image
+        attention reads (levels 0-2), None without it."""
         bs = gf_left.shape[0]
         tile = lambda g: g[:, None].expand(bs, self.v_in, g.shape[-1])
         Lf = torch.cat([tile(self.gf_left_ln(self.gf_left(gf_left))),
@@ -159,7 +183,8 @@ class MeshDecoder(nn.Module):
         Rf = torch.cat([tile(self.gf_right_ln(self.gf_right(gf_right))),
                         self.pe_right[None].expand(bs, -1, -1)], dim=-1)
         for i in range(3):
-            Lf, Rf = getattr(self, f"level{i}")(Lf, Rf)
+            Lf, Rf = getattr(self, f"level{i}")(
+                Lf, Rf, None if fmaps is None else fmaps[i])
             if i != 2:
                 Lf, Rf = upsample2x_nearest(Lf, 1), upsample2x_nearest(Rf, 1)
 

@@ -11,9 +11,9 @@ the encoder runs whole; without them it is the self-contained RGB-D path of
 predicted mask and the depth between the encoder's image and point phases
 (JAX ``handnet.py:60-82``).
 
-The port honours or refuses every ``Config`` value the model reads:
-``HandNet`` raises ``NotImplementedError`` for a value whose JAX path the
-port lacks (see ``check_config``).
+The port honours every ``Config`` value the JAX ``HandNet`` reads; it
+refuses only ``arch`` other than ``"resnet50"`` (the CSP family) and the
+shapes beyond the selection kernel's shared memory (``check_config``).
 """
 
 from __future__ import annotations
@@ -27,9 +27,10 @@ from torch import nn
 from pdfnet_tpu_torch.config import Config
 from pdfnet_tpu_torch.models.encoder import FPNEncoder, MidFusion
 from pdfnet_tpu_torch.models.gcn_decoder import MeshDecoder
+from pdfnet_tpu_torch.models.attention import ImgAttn
 from pdfnet_tpu_torch.models.layers import (BatchNorm, CenterHead, Dropout,
                                             L2Norm, StridedUpConv)
-from pdfnet_tpu_torch.ops.grouping import FUSED_METHODS, GENERIC_METHODS
+from pdfnet_tpu_torch.ops.grouping import KNN_METHODS
 from pdfnet_tpu_torch.ops.pointcloud import depth_to_hand_clouds
 from pdfnet_tpu_torch.ops.sa import check_selection_shape
 
@@ -41,23 +42,17 @@ def compute_dtype(cfg: Config) -> torch.dtype:
 
 
 def check_config(cfg: Config) -> None:
-    """Raise NotImplementedError naming each Config value the model would
-    read but whose JAX path the port does not have, and ValueError naming
-    the device limit a value exceeds (the selection kernel's shared memory,
+    """Raise NotImplementedError naming an ``arch`` other than
+    ``"resnet50"`` (the CSP family is not in the port yet), and ValueError
+    naming a ``knn_method`` neither package has or the device limit a value
+    exceeds (the selection kernel's shared memory,
     ``ops.sa.check_selection_shape``; k <= N at each level)."""
-    refused = []
-    if cfg.knn_method not in FUSED_METHODS + GENERIC_METHODS:
-        refused.append(f"knn_method={cfg.knn_method!r} (lax.approx_max_k has "
-                       f"no counterpart)")
-    if cfg.use_img_attn:
-        refused.append("use_img_attn=True (the decoder's image attention)")
-    if cfg.s2d_stem:
-        refused.append("s2d_stem=True (the space-to-depth stem)")
-    if cfg.patch_heads:
-        refused.append("patch_heads=True (heads at the hand centers only)")
-    if refused:
-        raise NotImplementedError("the port does not implement "
-                                  + "; ".join(refused))
+    if cfg.arch != "resnet50":
+        raise NotImplementedError(f"arch={cfg.arch!r}: the port has HandNet "
+                                  "(resnet50) only so far")
+    if cfg.knn_method not in KNN_METHODS:
+        raise ValueError(f"knn_method={cfg.knn_method!r}: not one of "
+                         f"{', '.join(KNN_METHODS)}")
     # the selection kernel's device limit (ops.sa.MAX_SMEM), at both
     # set-abstraction levels: N points, S centers, k neighbours
     levels = ((1, "sample_num", cfg.sample_num, cfg.sample_num_level1),
@@ -74,9 +69,6 @@ def check_config(cfg: Config) -> None:
 class HandNet(nn.Module):
     def __init__(self, cfg: Config):
         super().__init__()
-        if cfg.arch != "resnet50":
-            raise ValueError(f"arch={cfg.arch!r}: the port has HandNet "
-                             "(resnet50) only so far")
         check_config(cfg)
         self.cfg = cfg
         gd, fd = cfg.global_feature_dim, cfg.fmap_dim
@@ -90,7 +82,8 @@ class HandNet(nn.Module):
             input_feature_num=cfg.input_feature_num,
             raw_center_decode=cfg.replicate_reference_quirks,
             compute_dtype=compute_dtype(cfg), knn_method=cfg.knn_method,
-            fused_trunk=cfg.fused_trunk)
+            fused_trunk=cfg.fused_trunk, s2d_stem=cfg.s2d_stem,
+            patch_heads=cfg.patch_heads)
         # decoder-pyramid widths + trunk stages layer3, layer2, layer1
         self.mid = MidFusion((2 * fd, 2 * fd + 1024, 2 * fd + 512, 2 * fd + 256),
                              tuple(cfg.deconv_dims))
@@ -98,7 +91,13 @@ class HandNet(nn.Module):
             global_feature_dim=1024, gcn_in_dim=tuple(cfg.gcn_in_dim),
             gcn_out_dim=tuple(cfg.gcn_out_dim), graph_k=cfg.graph_k,
             num_blocks=cfg.graph_layer_num, n_heads=cfg.num_attn_heads,
-            dropout=cfg.dropout, img_size_px=cfg.default_resolution)
+            dropout=cfg.dropout, img_size_px=cfg.default_resolution,
+            use_img_attn=cfg.use_img_attn,
+            img_f_dims=tuple(cfg.deconv_dims[:3]),
+            grid_f_dims=tuple(cfg.img_dims),
+            img_sizes=(cfg.default_resolution // 32,
+                       cfg.default_resolution // 16,
+                       cfg.default_resolution // 8))
         for m in self.modules():
             if isinstance(m, BatchNorm):
                 m.frozen = cfg.freeze_bn_stats
@@ -129,7 +128,8 @@ class HandNet(nn.Module):
         In training mode ``other`` holds ``hms``, ``mask`` and every head of
         ``ret`` in float32 (NHWC); at eval it leaves out what the eval
         outputs never read: no hms, the mask only on the self-contained
-        path, and only the heatmap head.
+        path, and only the heatmap head (with ``use_img_attn`` the hms and
+        mask decoders run, as their pyramids feed the image attention).
         """
         cfg = self.cfg
         for m in self._dropouts:
@@ -139,7 +139,7 @@ class HandNet(nn.Module):
             if choose is None or cloud is None:
                 hms, mask, ret, ind, cached = self.encoder.image_phase(
                     img.permute(0, 3, 1, 2), ind, aux=self.training,
-                    need_mask=True)
+                    need_mask=True, need_fmaps=cfg.use_img_attn)
                 # mask channels are [right, left]; the cloud builder wants
                 # [left, right], as cloud[:, 0] is the left hand
                 mask_lr = mask.detach().flip(1).permute(0, 2, 3, 1)
@@ -157,16 +157,20 @@ class HandNet(nn.Module):
                 (hms, mask, ret, ind, img_fmaps, hms_fmaps,
                  dp_fmaps) = self.encoder(img.permute(0, 3, 1, 2),
                                           cloud.float(), choose, ind,
-                                          aux=self.training)
-            # the fmaps feed only ImgAttn, which is off (use_img_attn=False);
-            # at train time their BatchNorms still update, as in flax
-            gf_left, gf_right, _fmaps = self.mid(img_fmaps, hms_fmaps,
-                                                 dp_fmaps)
+                                          aux=self.training,
+                                          need_fmaps=cfg.use_img_attn)
+            # the fmaps feed only ImgAttn (use_img_attn); without it, at
+            # train time their BatchNorms still update, as in flax
+            gf_left, gf_right, fmaps = self.mid(img_fmaps, hms_fmaps,
+                                                dp_fmaps)
         # the mesh decoder stays float32 (Config.mesh_dtype)
-        result, params, hand_dicts, other = self.decoder(gf_left.float(),
-                                                         gf_right.float())
+        result, params, hand_dicts, other = self.decoder(
+            gf_left.float(), gf_right.float(),
+            [f.float() for f in fmaps] if cfg.use_img_attn else None)
         nhwc = lambda t: t.float().permute(0, 2, 3, 1)
-        other["ret"] = {k: nhwc(v) for k, v in ret.items()}
+        # patch heads arrive as (B, 2, C), the values at the centers
+        other["ret"] = {k: nhwc(v) if v.dim() == 4 else v.float()
+                        for k, v in ret.items()}
         other["ind"] = ind
         if hms is not None:
             other["hms"] = nhwc(hms)
@@ -195,7 +199,8 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator):
 def init_weights(model: HandNet, seed: int) -> None:
     """Seeded initialization with the flax model's initializers: lecun-normal
     kernels, zero biases, unit norms, the -4.59 heatmap bias, L2Norm gain
-    10, and the decoder's unsample layer set from the upsample matrix."""
+    10, ``ImgAttn.pos_emb`` normal with std 0.02, and the decoder's
+    unsample layer set from the upsample matrix."""
     gen = torch.Generator().manual_seed(seed)
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
@@ -215,6 +220,8 @@ def init_weights(model: HandNet, seed: int) -> None:
             m.conv1.bias.fill_(m.bias_init_value)
         elif isinstance(m, L2Norm):
             m.weight.fill_(m.scale_init)
+        elif isinstance(m, ImgAttn):
+            m.pos_emb.normal_(0.0, 0.02, generator=gen)
     model.decoder.unsample.weight.copy_(model.decoder.upsample)
 
 

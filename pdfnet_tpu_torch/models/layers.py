@@ -217,7 +217,12 @@ class PyramidDecoder(nn.Module):
 
 class CenterHead(nn.Module):
     """Per-task head: 3x3 conv + relu + 1x1 conv; ``bias_init_value`` seeds
-    the final bias (-4.59 for heatmap heads)."""
+    the final bias (-4.59 for heatmap heads).
+
+    ``patch=True`` applies the same weights to pre-gathered 3x3 input
+    patches without padding: the SAME-padded full-map head's value at each
+    patch's center (the patches carry the map's zero ring at its borders).
+    """
 
     def __init__(self, cin: int, out_dim: int, mid_dim: int = 256,
                  bias_init_value: float = 0.0):
@@ -226,8 +231,10 @@ class CenterHead(nn.Module):
         self.conv0 = conv(cin, mid_dim, 3, bias=True)
         self.conv1 = conv(mid_dim, out_dim, 1, bias=True)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv1(F.relu(self.conv0(x)))
+    def forward(self, x: torch.Tensor, patch: bool = False) -> torch.Tensor:
+        y = (F.conv2d(x, self.conv0.weight, self.conv0.bias) if patch
+             else self.conv0(x))
+        return self.conv1(F.relu(y))
 
 
 class MLPResBlock(nn.Module):

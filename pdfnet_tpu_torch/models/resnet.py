@@ -12,6 +12,10 @@ width >= 128 in stages 1-3 (``layer2_1..3``, ``layer3_1..5``) through
 call, so the ``state_dict`` is unchanged.  The trunk then runs in
 ``torch.channels_last``, so the fused blocks read and write NHWC views of its
 maps with no copies; training keeps the unfused blocks.
+
+``s2d_stem`` (``Config.s2d_stem``) computes the stem conv from the same
+parameter as a 4x4 conv over a 2x2 space-to-depth input
+(``s2d_stem_conv``), at train and at eval.
 """
 
 from __future__ import annotations
@@ -50,13 +54,33 @@ class Bottleneck(nn.Module):
         return F.relu(y + shortcut)
 
 
+def s2d_stem_conv(x: torch.Tensor, w7: torch.Tensor) -> torch.Tensor:
+    """The 7x7/stride-2 stem conv (padding 3) as a 4x4/stride-1 conv over a
+    2x2 space-to-depth input with padding (2, 1), from the same (64, 3, 7,
+    7) weight (JAX ``_s2d_stem_conv``, ``resnet.py:83-103``): the weight
+    padded to 8x8 with a zero row and column at index 0, output tap
+    dy' = 2u + a split into the s2d row offset u and the pixel phase a.
+    Exact in real arithmetic; only the float summation order differs.
+    x (B, C, H, W) with H and W even -> (B, O, H/2, W/2)."""
+    B, C, H, W = x.shape
+    O = w7.shape[0]
+    w8 = F.pad(w7, (1, 0, 1, 0))                       # (O, C, 8, 8)
+    # (o, c, u, a, v, b) -> (o, a, b, c, u, v): channel a*2C + b*C + c
+    w12 = (w8.reshape(O, C, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4)
+           .reshape(O, 4 * C, 4, 4))
+    s = (x.reshape(B, C, H // 2, 2, W // 2, 2).permute(0, 3, 5, 1, 2, 4)
+         .reshape(B, 4 * C, H // 2, W // 2))
+    return F.conv2d(F.pad(s, (2, 1, 2, 1)), w12)
+
+
 class ResNet(nn.Module):
     """ResNet-v1 with bottleneck blocks (ResNet-50 at the default sizes)."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
-                 fused_eval: bool = False):
+                 fused_eval: bool = False, s2d_stem: bool = False):
         super().__init__()
         self.fused_eval = fused_eval
+        self.s2d_stem = s2d_stem
         self.conv1 = conv(3, 64, 7, 2, padding=3)
         self.bn1 = bn(64, keep_dtype=True)
         self.block_names = []
@@ -78,7 +102,9 @@ class ResNet(nn.Module):
         fuse = self.fused_eval and not self.training
         if fuse:
             x = x.contiguous(memory_format=torch.channels_last)
-        stem = F.relu(self.bn1(self.conv1(x)))             # (B, 64, H/2, W/2)
+        stem = (s2d_stem_conv(x, self.conv1.weight) if self.s2d_stem
+                else self.conv1(x))
+        stem = F.relu(self.bn1(stem))                      # (B, 64, H/2, W/2)
         y = F.max_pool2d(stem, 3, stride=2, padding=1)
         outs = []
         for names in self.block_names:

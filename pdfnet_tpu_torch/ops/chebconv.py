@@ -7,6 +7,8 @@ the reference's view(B*V, Fin*K), so converted weights load unchanged.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -23,3 +25,11 @@ def cheb_basis(x: torch.Tensor, L: torch.Tensor, K: int) -> torch.Tensor:
             x0, x1 = x1, x2
     B, V, F = x.shape
     return torch.stack(terms, dim=-1).reshape(B, V, F * K)
+
+
+def cheb_conv(x: torch.Tensor, L: torch.Tensor, weight: torch.Tensor,
+              bias: Optional[torch.Tensor], K: int) -> torch.Tensor:
+    """Full Chebyshev conv: basis + linear mix.  weight (F*K, Fout), input
+    major with K fastest (the flax Dense layout), bias (Fout,) or None."""
+    y = torch.einsum("bvk,ko->bvo", cheb_basis(x, L, K), weight)
+    return y if bias is None else y + bias

@@ -10,6 +10,13 @@ from __future__ import annotations
 import torch
 
 
+def gather_feat(feat: torch.Tensor, ind: torch.Tensor) -> torch.Tensor:
+    """Rows of a (B, N, C) tensor at per-batch indices (B, K) -> (B, K, C)
+    (the reference's ``_gather_feat``)."""
+    b = torch.arange(feat.shape[0], device=feat.device)[:, None]
+    return feat[b, ind.long()]
+
+
 def gather_pixels_2d(fmap_nhwc: torch.Tensor, ind: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) map, (B, K) flat indices -> (B, K, C), indexing by
     (row, col) so the map is never collapsed to (B, H*W, C)."""
@@ -46,5 +53,4 @@ def gather_pixels(fmap_nhwc: torch.Tensor, ind: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) map, (B, K) flat indices into the row-major H*W grid ->
     (B, K, C)."""
     B, H, W, C = fmap_nhwc.shape
-    b = torch.arange(B, device=fmap_nhwc.device)[:, None]
-    return fmap_nhwc.reshape(B, H * W, C)[b, ind.long()]
+    return gather_feat(fmap_nhwc.reshape(B, H * W, C), ind)

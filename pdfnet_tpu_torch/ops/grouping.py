@@ -4,13 +4,16 @@
 - ``"pallas_fused"`` / ``"pallas_sa"``: the fused branches, ``group_points``
   -> ``_fused_group_pallas`` and ``group_points_level2`` ->
   ``_fused_group_feat_pallas`` (the two kernels below);
-- ``"topk"`` / ``"pallas"``, and level 1 of clouds wider than xyz under
-  every method: the generic branch, ``knn_ball_query`` (the
+- ``"topk"`` / ``"pallas"`` / ``"approx"``, and level 1 of clouds wider
+  than xyz under every method: the generic branch, ``knn_ball_query`` (the
   selection under ``no_grad``, as JAX's ``stop_gradient``), an exact row
   gather and xyz minus center, differentiated by autograd through the
   gather.  ``"pallas"`` selects with the ``ops.sa.knn`` kernel (K5),
-  ``"topk"`` with a plain sort of the matmul-expanded distances;
-- ``"approx"`` (``lax.approx_max_k``) has no counterpart and raises.
+  ``"topk"`` with a plain sort of the matmul-expanded distances,
+  ``"approx"`` with an exact top-k of those distances rounded to bf16
+  (JAX: ``lax.approx_max_k`` of the bf16 distances, ``grouping.py:88-93``;
+  an exact top-k is one of its legal results), plain PyTorch on the card
+  too, as the JAX path has no Pallas kernel.
 
 Two CUDA kernels replace the TPU kernels those branches call:
 
@@ -48,7 +51,8 @@ from pdfnet_tpu_torch.ops.sa import (_GROUP_SIGS, _check, _check_cuda, _f32,
                                      group_select_plain, knn, knn_plain)
 
 FUSED_METHODS = ("pallas_fused", "pallas_sa")
-GENERIC_METHODS = ("topk", "pallas")
+GENERIC_METHODS = ("topk", "pallas", "approx")
+KNN_METHODS = GENERIC_METHODS + FUSED_METHODS
 
 launches: Dict[str, int] = {"knn_group_xyz": 0, "group_feat": 0}
 
@@ -194,6 +198,25 @@ def _pairwise_sqdist(centers: torch.Tensor, points: torch.Tensor
     return c2 + p2 - 2.0 * cross
 
 
+def _total_order(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 keys in IEEE total order (-0 before +0), the order
+    of ``lax.top_k``: its stable ascending sort is ``lax.top_k`` of ``-x``
+    with ties to the lowest index."""
+    bits = x.view(torch.int32)
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
+
+
+def approx_select(d2: torch.Tensor, k: int):
+    """``knn_method="approx"``'s selection from float32 squared distances
+    (..., N): (dist (..., k), idx (..., k)) of the k smallest after rounding
+    to bf16, dist in float32 (exact widening).  JAX takes
+    ``lax.approx_max_k(-d2.astype(bf16), k, recall_target=0.95)``; this is
+    ``lax.top_k`` of the same values, one of its legal results."""
+    d2 = d2.to(torch.bfloat16).float()
+    idx = torch.sort(_total_order(d2), dim=-1, stable=True).indices[..., :k]
+    return d2.gather(-1, idx), idx
+
+
 def knn_ball_query(centers: torch.Tensor, points: torch.Tensor, k: int,
                    radius2: float, method: str = "topk"):
     """Indices of the k nearest points per center, ball-query substituted
@@ -202,19 +225,22 @@ def knn_ball_query(centers: torch.Tensor, points: torch.Tensor, k: int,
     index; valid (H, S, k) bool, False where substituted).  The xyz must be
     float32, as they are at both levels of the model (a lower precision is
     refused, not rounded into the distances); ``radius2`` is compared in
-    float32.  Not differentiable (integer output)."""
+    float32.  ``"approx"`` ranks the distances rounded to bf16 (ties to the
+    lowest index) and tests the ball on those rounded distances, as JAX
+    does.  Not differentiable (integer output)."""
     if method in FUSED_METHODS:
         method = "pallas"            # the same selection; fusion is upstream
     if method not in GENERIC_METHODS:
-        raise NotImplementedError(
-            f"knn_method={method!r}: approx_max_k has no counterpart in the "
-            f"port; use 'topk' or 'pallas'")
+        raise ValueError(f"knn_method={method!r}: not one of "
+                         f"{', '.join(KNN_METHODS)}")
     if centers.dtype != torch.float32 or points.dtype != torch.float32:
         raise TypeError(f"knn_ball_query: xyz must be float32, got "
                         f"{centers.dtype} centers, {points.dtype} points")
     with torch.no_grad(), torch.autocast(points.device.type, enabled=False):
         if method == "pallas":
             dist, idx = knn(centers.contiguous(), points.contiguous(), k)
+        elif method == "approx":
+            dist, idx = approx_select(_pairwise_sqdist(centers, points), k)
         else:
             d2 = _pairwise_sqdist(centers, points)
             dist, idx = torch.sort(d2, dim=-1, stable=True)

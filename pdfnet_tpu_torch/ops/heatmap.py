@@ -1,5 +1,5 @@
-"""CenterNet heatmap decode: clamped sigmoid, NMS, per-class top-1
-(port of ``pdfnet_tpu/ops/heatmap.py``).  Maps are NHWC."""
+"""CenterNet heatmap decode: clamped sigmoid, NMS, per-image top-k and the
+per-class top-1 (port of ``pdfnet_tpu/ops/heatmap.py``).  Maps are NHWC."""
 
 from __future__ import annotations
 
@@ -21,6 +21,19 @@ def heatmap_nms(heat: torch.Tensor, kernel: int = 5) -> torch.Tensor:
     hmax = F.max_pool2d(heat.permute(0, 3, 1, 2), kernel, stride=1,
                         padding=pad).permute(0, 2, 3, 1)
     return heat * (hmax == heat).to(heat.dtype)
+
+
+def heatmap_topk(scores: torch.Tensor, k: int):
+    """Per-image top-k over one heatmap channel (B, H, W) -> (scores,
+    flat_inds, ys, xs), each (B, k); ys and xs float32.  Equal scores go to
+    the lowest index first, as ``lax.top_k`` takes them (a stable
+    descending sort; ``torch.topk`` states no tie order)."""
+    B, H, W = scores.shape
+    top, inds = torch.sort(scores.reshape(B, -1), dim=-1, descending=True,
+                           stable=True)
+    top, inds = top[:, :k], inds[:, :k]
+    return (top, inds, (inds // W).to(torch.float32),
+            (inds % W).to(torch.float32))
 
 
 def decode_centers(hm: torch.Tensor, kernel: int = 5) -> torch.Tensor:

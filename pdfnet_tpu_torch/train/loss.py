@@ -19,10 +19,16 @@ import torch
 
 from pdfnet_tpu_torch import assets
 from pdfnet_tpu_torch.config import Config
+from pdfnet_tpu_torch.mano.layer import vertex_normals
 from pdfnet_tpu_torch.models.handnet import resolve_device
 from pdfnet_tpu_torch.ops.gather import gather_pixels
 from pdfnet_tpu_torch.ops.geometry import perspective_project, uv_root_to_3d
 from pdfnet_tpu_torch.ops.heatmap import clamped_sigmoid
+from pdfnet_tpu_torch.render.lighting import sh_illumination
+from pdfnet_tpu_torch.render.rasterizer import render_two_hands
+from pdfnet_tpu_torch.train.priors import hard_example_mining
+from pdfnet_tpu_torch.train.priors import photometric_loss as photo_l1
+from pdfnet_tpu_torch.train.priors import silhouette_loss
 
 # 20 hand bones as (parent, child) joint-index pairs (losses.py:37-56).
 BONES = np.array(
@@ -167,6 +173,48 @@ def mesh_downsample_pyramid(v1008: torch.Tensor,
     return v
 
 
+def photometric_terms(cfg: Config, consts: LossConsts, other: Dict[str, Any],
+                      verts_abs_left: torch.Tensor,
+                      verts_abs_right: torch.Tensor, ind: torch.Tensor,
+                      batch: Dict[str, torch.Tensor]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Photometric + silhouette losses from the texture/light heads
+    (``loss.py:174-225``; origforward's photometric path,
+    simplified.py:657-1048): both predicted hands rendered with SH-lit
+    per-vertex albedo, compared with the input image inside the rendered
+    mask.  The heads are full maps (gathered at ``ind``) or, under
+    ``patch_heads``, already (B, 2, C).  Returns (photometric (B,),
+    seg (B,)); the mask is hard, so ``seg`` carries no gradient."""
+    B = verts_abs_left.shape[0]
+    res = cfg.default_resolution
+    tex, light = other["ret"]["texture"], other["ret"]["light"]
+    if tex.dim() != 3:                                       # full maps
+        tex = gather_pixels(tex, ind)                        # (B, 2, 2334)
+        light = gather_pixels(light, ind)                    # (B, 2, 27)
+    tex = torch.sigmoid(tex.reshape(B, 2, 778, 3))
+
+    nl = vertex_normals(verts_abs_left, consts.faces_left)
+    nr = vertex_normals(verts_abs_right, consts.faces_right)
+    col_l, _ = sh_illumination(tex[:, 0], nl, light[:, 0])
+    col_r, _ = sh_illumination(tex[:, 1], nr, light[:, 1])
+    colors = torch.cat([col_l, col_r], dim=1).clamp(0.0, 1.0)  # (B, 1556, 3)
+
+    renders = [render_two_hands(verts_abs_left[i], verts_abs_right[i],
+                                batch["K_new"][i], consts.faces_left,
+                                consts.faces_right, res, res,
+                                vert_colors=colors[i]) for i in range(B)]
+    rgb = torch.stack([r[0] for r in renders])
+    mask = torch.stack([r[1] for r in renders])
+
+    dev = rgb.device
+    mean = torch.tensor(cfg.mean, dtype=torch.float32, device=dev)
+    std = torch.tensor(cfg.std, dtype=torch.float32, device=dev)
+    image01 = batch["input"] * std + mean                     # back to [0,1]
+    photo = photo_l1(rgb, image01, mask)
+    gt_sil = batch["mask"].sum(dim=-1).clamp(0.0, 1.0)
+    return photo, silhouette_loss(mask, gt_sil)
+
+
 # ---- the loss (pdfnet_tpu/train/loss.py:228-431) ----------------------------
 
 def compute_loss(cfg: Config, consts: LossConsts, result: Dict[str, Any],
@@ -177,12 +225,10 @@ def compute_loss(cfg: Config, consts: LossConsts, result: Dict[str, Any],
     """Returns (scalar loss, stats), every term and gate of the JAX
     ``compute_loss``: the 14 weighted terms, the ``epoch >=
     edge_loss_start_epoch`` gate on the edge and 2-D joint terms, the
-    ``replicate_reference_quirks`` and ``off`` variants, and joints-only
-    batches (no vertex ground truth: the mesh terms are zero)."""
-    if cfg.photometric_loss:
-        raise NotImplementedError("photometric_loss needs the renderer, "
-                                  "which the rendering slice of the port "
-                                  "brings")
+    ``replicate_reference_quirks``, ``off`` and ``photometric_loss``
+    variants (the last adds the photometric and silhouette terms and takes
+    the mean over the hardest 70 % of the samples), and joints-only batches
+    (no vertex ground truth: the mesh terms are zero)."""
     res_px = cfg.default_resolution
     valid = batch["valid"]                                  # (B, 2)
     dev = valid.device
@@ -332,7 +378,16 @@ def compute_loss(cfg: Config, consts: LossConsts, result: Dict[str, Any],
         loss = loss + w * joints_loss * 500.0
         if cfg.bone_loss:
             loss = loss + cfg.bone_dir_weight * bone_loss
-    total = loss.mean()
+    if cfg.photometric_loss:
+        photo, seg = photometric_terms(cfg, consts, other, vl_abs, vr_abs,
+                                       ind_lr, batch)
+        loss = loss + 1.0 * photo + 20.0 * seg
+        stats.update(photometric_loss=photo.mean(), seg_loss=seg.mean())
+        # hard-example mining on the photometric recipe: the mean over the
+        # hardest 70 % of the samples (base_trainer.py:140-142)
+        total = hard_example_mining(loss, 0.7)
+    else:
+        total = loss.mean()
     if cfg.off:
         stats.update(off_hm_loss=off_hm_loss, off_lms_loss=off_lms_loss)
     stats.update(

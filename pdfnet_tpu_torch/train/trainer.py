@@ -8,9 +8,10 @@ is forward, loss, backward and the Adam update (``train.step``); the epoch's
 stats stay on the device between the logging steps.
 
 Refused by name, as the port has no path for them yet: ``arch="csp_*"``
-(the CSP detector), ``zero1_opt_sharding`` (optimizer-state sharding over
-processes), ``image_summary`` and ``photometric_loss`` (they render the
-meshes, and the port has no rasterizer).
+(the CSP detector) and ``zero1_opt_sharding`` (optimizer-state sharding
+over processes).  With ``photometric_loss`` or ``image_summary`` the epoch
+writes an ``input | pred | gt`` render grid every ``image_summary_every``
+steps (rendered on the trainer's device) through ``Logger.image``.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from pdfnet_tpu_torch.config import Config
 from pdfnet_tpu_torch.data.prefetch import prefetch
 from pdfnet_tpu_torch.models.handnet import (HandNet, build_model,
                                              init_weights, resolve_device)
+from pdfnet_tpu_torch.render.rasterizer import render_two_hands
 from pdfnet_tpu_torch.train import checkpoint as ckpt_lib
 from pdfnet_tpu_torch.train.loss import load_loss_consts
 from pdfnet_tpu_torch.train.metrics import MetricAccumulator
@@ -46,11 +48,6 @@ def check_trainer_config(cfg: Config) -> None:
     if cfg.zero1_opt_sharding:
         refused.append("zero1_opt_sharding=True (optimizer-state sharding "
                        "over processes)")
-    if cfg.image_summary:
-        refused.append("image_summary=True (render grids need the "
-                       "rasterizer)")
-    if cfg.photometric_loss:
-        refused.append("photometric_loss=True (the rasterizer)")
     if refused:
         raise NotImplementedError("the port's trainer does not implement "
                                   + "; ".join(refused))
@@ -134,6 +131,9 @@ class Trainer:
         running = None
         n = 0
         self.profiler.reset_epoch()
+        img_every = self.cfg.image_summary_every
+        log_images = (logger is not None and img_every > 0 and
+                      (self.cfg.photometric_loss or self.cfg.image_summary))
         try:
             for i, batch in enumerate(batches):
                 self.profiler.data_tick()
@@ -153,6 +153,10 @@ class Trainer:
                     logger.write(f"train: [{epoch}][{i}]"
                                  f"|loss {avg.get('loss', 0.0):.4f} "
                                  f"|cur_loss {cur.get('loss', 0.0):.4f}")
+                if log_images and (n - 1) % img_every == 0:
+                    grid = self.image_summary(batch)
+                    if grid is not None:
+                        logger.image(self.state.step, "train", grid)
         finally:
             self.profiler.close()
             close = getattr(batches, "close", None)
@@ -163,6 +167,42 @@ class Trainer:
         out = {k: float(v) / n for k, v in running.items()}
         out.update(self.profiler.summary())
         return out
+
+    def image_summary(self, batch: Dict[str, np.ndarray],
+                      max_imgs: int = 4) -> Optional[np.ndarray]:
+        """An ``input | pred | gt`` grid of the first ``max_imgs`` samples
+        of a host batch (reference base_trainer.py:174-190 image_summary):
+        the eval step's absolute meshes rendered on the trainer's device
+        and laid over the input.  Returns a uint8 BGR image, or None before
+        ``init_state``."""
+        from pdfnet_tpu_torch.utils.vis import denormalize_image
+
+        if self.state is None:
+            return None
+        cfg = self.cfg
+        n = min(max_imgs, batch["input"].shape[0])
+        out = self.eval_step({k: v[:n] for k, v in batch.items()})
+        res = cfg.default_resolution
+        sets = [out["verts_pred"]] + ([out["verts_gt"]] if "verts_gt" in out
+                                      else [])
+        rows = []
+        with torch.no_grad():
+            for i in range(n):
+                img = denormalize_image(np.asarray(batch["input"][i]),
+                                        cfg.mean, cfg.std)
+                panels = [img]
+                K = torch.as_tensor(np.asarray(batch["K_new"][i]),
+                                    device=self.device)
+                for verts in sets:
+                    rgb, rmask, _ = render_two_hands(
+                        verts[i, 0], verts[i, 1], K, self.consts.faces_left,
+                        self.consts.faces_right, res, res)
+                    rgb = rgb.cpu().numpy()[..., ::-1] * 255
+                    rmask = rmask.cpu().numpy()[..., None]
+                    panels.append((rgb * rmask + img * (1 - rmask))
+                                  .astype(np.uint8))
+                rows.append(np.concatenate(panels, axis=1))
+        return np.concatenate(rows, axis=0)
 
     def evaluate(self, batches: Iterable[Dict[str, np.ndarray]],
                  vis_every: int = 0, vis_dir: str = "outputs/imgs",

@@ -15,9 +15,12 @@ in the flax variables tree, with the layout transforms flax expects:
 and ``pdfnet_tpu_torch.convert.from_flax`` carries that tree into the
 port's ``state_dict`` (``load_reference_checkpoint`` chains the two).  Dead
 reference parameters (mano_head, joint_head_l/r, netR_FC, resnet.fc, GCN
-norm1, img_ex when disabled) are skipped and reported, as are the
-BatchNorm step counters.  ``use_img_attn=True`` is refused by name: the
-port has no ``ImgAttn``.
+norm1, img_ex) are skipped and reported, as are the BatchNorm step
+counters.  The mapping names no ``img_ex`` entry whatever ``use_img_attn``
+says (the JAX ``build_mapping(use_img_attn)`` does not read its argument:
+the reference constructs img_ex but its forward never calls it), so a model
+with ``use_img_attn`` keeps its own ``ImgAttn`` weights when it loads a
+reference checkpoint.
 """
 
 from __future__ import annotations
@@ -219,14 +222,11 @@ def build_mapping() -> Dict[str, Tuple]:
     return m
 
 
-def convert_state_dict(state: Dict[str, np.ndarray],
-                       use_img_attn: bool = False,
-                       verbose: bool = True):
+def convert_state_dict(state: Dict[str, np.ndarray], verbose: bool = True):
     """torch name->array dict -> ({'params': ..., 'batch_stats': ...},
-    skipped names)."""
-    if use_img_attn:
-        raise NotImplementedError("use_img_attn=True: the port has no "
-                                  "ImgAttn (the decoder's image attention)")
+    skipped names).  The JAX function's ``use_img_attn`` argument changes
+    nothing there (no img_ex entry is mapped either way) and is not taken
+    here."""
     # strip DataParallel prefixes (reference load_model semantics)
     state = {(k[7:] if k.startswith("module.") else k): v
              for k, v in state.items()}
@@ -267,8 +267,16 @@ def load_reference_checkpoint(path: str, model: torch.nn.Module,
     ``convert_state_dict``, then ``convert.from_flax``, then
     ``load_state_dict``.  Every parameter and running statistic of the port
     must be set by the checkpoint, or ``from_flax`` raises naming what is
-    missing.  Returns the skipped (dead) reference names."""
+    missing; under ``use_img_attn`` the decoder's ``ImgAttn`` modules
+    (``img_ex_left`` / ``img_ex_right``), which no reference entry maps,
+    keep the model's weights.  Returns the skipped (dead) reference
+    names."""
+    img_attn = model.cfg.use_img_attn
     variables, skipped = convert_state_dict(load_torch_checkpoint(path),
                                             verbose=verbose)
-    model.load_state_dict(convert.from_flax(variables, model))
+    keep = (".img_ex_",) if img_attn else ()
+    if img_attn and verbose:
+        print("convert: use_img_attn: the decoder's img_ex_* weights keep "
+              "the model's values (the reference's are not mapped)")
+    model.load_state_dict(convert.from_flax(variables, model, keep))
     return skipped

@@ -1,8 +1,8 @@
 """The port's bench entry (``python -m pdfnet_tpu_torch.bench``) on the
 CPU at a tiny size, in each of ``bench.py``'s three modes: one JSON line
 on stdout with ``bench.py``'s metric name, keys and unit, a positive value
-and a null ``vs_baseline``; the flags are ``bench.py``'s; the values the
-port lacks are refused by name.
+and a null ``vs_baseline``; the flags are ``bench.py``'s, ``--s2d_stem``
+and ``--knn approx`` included.
 
 The CPU is reached through ``main``'s ``device`` argument; the size is cut
 by giving the bench a ``Config`` with the small test shapes (float32, res
@@ -67,11 +67,19 @@ def test_flags_are_bench_pys():
                               train=False, train_batch=8)
 
 
-@pytest.mark.parametrize("flags,name", [(["--s2d_stem"], "s2d_stem=True"),
-                                        (["--knn", "approx"],
-                                         "knn_method='approx'")])
-def test_refused_by_name(flags, name, capsys):
-    with pytest.raises(NotImplementedError, match=name):
-        bench.main(flags, device="cpu")
-    assert capsys.readouterr().out == ""
+@pytest.mark.parametrize("flags,field,value", [
+    (["--s2d_stem"], "s2d_stem", True),
+    (["--knn", "approx"], "knn_method", "approx")])
+def test_runs_with(flags, field, value, small_config, capsys, monkeypatch):
+    """The eval mode with the flag reaches the model's Config and prints
+    its line."""
+    from pdfnet_tpu_torch.models import handnet
+    seen = []
+    build = handnet.build_model
+    monkeypatch.setattr(handnet, "build_model",
+                        lambda cfg, **kw: seen.append(cfg) or build(cfg, **kw))
+    line = bench.main(flags + TINY, device="cpu")
+    assert getattr(seen[0], field) == value
+    assert json.loads(capsys.readouterr().out.strip()) == line
+    assert line["value"] > 0
 

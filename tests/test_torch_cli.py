@@ -7,7 +7,9 @@
   or model is built: the multi-process flags, ``--no-depth``, and the
   Config values refused by the model and the trainer.
 - ``--sample_strategy FPS`` and ``--input_feature_num 6`` train a step,
-  and the CLI's dataset gives the JAX dataset's batch for them.
+  and the CLI's dataset gives the JAX dataset's batch for them;
+  ``--photometric_loss`` and ``--image_summary`` train steps on the H2O
+  fixture and write the render grids.
 - ``main(["--cpu", "--mode", "train", ..., "--steps", "2"])`` on the H2O
   fixture tree, then ``--mode test --load_model`` of its checkpoint, writes
   ``H2O-val.txt`` and a ``hand_poses.json`` with the JAX CLI's structure
@@ -98,8 +100,6 @@ def test_no_depth_is_refused():
 @pytest.mark.parametrize("argv,exc,name", [
     (["--arch", "csp_50"], NotImplementedError, "arch="),
     (["--zero1_opt_sharding"], NotImplementedError, "zero1_opt_sharding="),
-    (["--image_summary"], NotImplementedError, "image_summary="),
-    (["--photometric_loss"], NotImplementedError, "photometric_loss="),
     (["--knn_k", "600"], ValueError, "knn_k=600"),
     (["--sample_num", "4096", "--sample_num_level1", "4096", "--knn_k",
       "4096"], ValueError, "MAX_SMEM")])
@@ -135,6 +135,36 @@ def test_train_then_test_writes_the_score_files(h2o_tree, tmp_path):
     assert sorted(sub["1"]) == ["000000.txt", "000001.txt", "000002.txt"]
     assert all(len(v) == 126 and np.isfinite(v).all()
                for v in sub["1"].values())
+
+
+@pytest.mark.parametrize("flag", ["--photometric_loss", "--image_summary"])
+def test_train_writes_render_grids(h2o_tree, tmp_path, flag):
+    """Two train steps of batch 1 at 192x192 (the fixture's hands are valid
+    there) with ``--image_summary_every 1``: finite parameters, the photometric
+    terms among the logged stats only with ``--photometric_loss``, and one
+    ``input | pred | gt`` grid a step under ``logs/``."""
+    import cv2
+    out = str(tmp_path / "out")
+    trainer = main(["--mode", "train", "--num_epochs", "1", "--steps", "2",
+                    "--eval_every", "0", "--save_every", "0", "--cpu",
+                    "--cache_path", h2o_tree, "--pre_fix", h2o_tree,
+                    "--output_path", out, "--batch_size", "1",
+                    "--sample_num", "256", "--sample_num_level1", "128",
+                    "--sample_num_level2", "32", "--knn_k", "8",
+                    "--compute_dtype", "float32", "--num_workers", "2",
+                    "--default_resolution", "192", "--image_summary_every",
+                    "1", flag])
+    assert trainer.state.step == 2
+    assert all(torch.isfinite(p).all() for p in trainer.model.parameters())
+    grids = sorted(os.path.join(d, f) for d, _, fs in os.walk(out)
+                   for f in fs if f.endswith(".png"))
+    assert [os.path.basename(g) for g in grids] == ["train_00000001.png",
+                                                    "train_00000002.png"]
+    assert cv2.imread(grids[0]).shape == (192, 3 * 192, 3)
+    logs = [os.path.join(d, f) for d, _, fs in os.walk(out) for f in fs
+            if f == "log.jsonl"]
+    first = json.loads(open(logs[0]).readline())
+    assert ("photometric_loss" in first) == (flag == "--photometric_loss")
 
 
 @pytest.mark.parametrize("flags", [["--sample_strategy", "FPS"],

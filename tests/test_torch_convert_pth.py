@@ -27,6 +27,7 @@ from pdfnet_tpu.train.step import make_eval_step as jax_eval_step
 from pdfnet_tpu.utils import convert_torch as jax_ct
 
 import pdfnet_tpu_torch as port
+from pdfnet_tpu_torch import convert
 from pdfnet_tpu_torch.utils import convert_torch as port_ct
 
 from test_torch_eval_step import SMALL, TOL, _batch, jax_variables
@@ -122,9 +123,52 @@ def test_converted_trees_identical(pth):
         np.testing.assert_array_equal(a, _leaf(pth["variables"], path))
 
 
-def test_use_img_attn_is_refused():
-    with pytest.raises(NotImplementedError, match="use_img_attn=True"):
-        port_ct.convert_state_dict({}, use_img_attn=True, verbose=False)
+def test_use_img_attn_loads_and_matches_jax(tmp_path):
+    """A reference checkpoint with ``img_ex`` entries (constructed by the
+    reference, never called in its forward) into a model with
+    ``use_img_attn``: the mapping is the JAX package's
+    ``build_mapping(use_img_attn=True)``, the ``img_ex`` entries are
+    skipped as JAX skips them, the decoder's ``ImgAttn`` keeps the model's
+    weights (here the JAX model's, set before the load), and the eval step
+    then matches JAX's on the flax tree within TOL.  At res 192, where the
+    image attention's grid has patches; ``topk`` grouping on both sides."""
+    torch.set_num_threads(1)
+    opts = dict(SMALL, default_resolution=192, knn_method="topk",
+                gather_method="take", use_img_attn=True)
+    cfg_j = JaxConfig(**opts)
+    batch = _batch(1, 192, cfg_j.sample_num)
+    variables = jax_variables(cfg_j, batch)
+    mapping = jax_ct.build_mapping(use_img_attn=True)
+    assert list(port_ct.build_mapping()) == list(mapping)
+    state = {"module." + k: torch.from_numpy(v.copy())
+             for k, v in reference_state(variables).items()}
+    img_ex = {f"module.decoder.dual_gcn.layers.0.img_ex_left.{n}":
+              torch.randn(4, 4) for n in ("pos_embedding", "proj.weight")}
+    state.update(img_ex)
+    path = str(tmp_path / "img_attn.pth")
+    torch.save({"state_dict": state}, path)
+    _, skipped_j = jax_ct.convert_state_dict(
+        port_ct.load_torch_checkpoint(path), use_img_attn=True,
+        verbose=False)
+    assert sorted(skipped_j) == sorted(k[7:] for k in img_ex)
+
+    cfg = port.Config(**opts)
+    model = port.HandNet(cfg).eval()
+    full = convert.from_flax(variables, model)
+    model.load_state_dict({k: v for k, v in full.items()
+                           if ".img_ex_" in k}, strict=False)
+    skipped = port_ct.load_reference_checkpoint(path, model, verbose=False)
+    assert skipped == skipped_j
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, full[k]), k
+
+    step = jax_eval_step(cfg_j, jax_build_model(cfg_j), jax_consts())
+    ref = step(variables["params"], variables["batch_stats"],
+               {k: jax.numpy.asarray(v) for k, v in batch.items()})
+    got = port.make_eval_step(cfg, model, port.load_loss_consts("cpu"))(batch)
+    for k, v in got.items():
+        np.testing.assert_allclose(v.numpy(), np.asarray(ref[k]), **TOL,
+                                   err_msg=k)
 
 
 def test_missing_live_entry_is_named(pth, tmp_path):

@@ -1,9 +1,11 @@
 """Package hygiene of the PyTorch port: it imports nothing of JAX or of the
 JAX package, its ``Config`` mirrors ``pdfnet_tpu.config.Config``, every
 entry point refuses by name the values whose JAX path it lacks
-(``build_model``, the trainer, the CLI's multi-process flags) and the device
-limits that remain (the selection kernel's shared memory), and the values it
-has since taken (FPS, normals) build a model the JAX weights fit."""
+(``build_model``'s CSP archs, the trainer's, the CLI's multi-process flags)
+and the device limits that remain (the selection kernel's shared memory),
+and the values it has since taken (FPS, normals, ``knn_method="approx"``,
+``use_img_attn``, ``s2d_stem``, ``patch_heads``, ``image_summary``,
+``photometric_loss``) build a model and run."""
 
 import dataclasses
 import os
@@ -85,19 +87,36 @@ def test_new_modules_are_walked():
               "train.trainer", "utils.vis", "utils.profiler", "cli.main",
               "utils.eval_kit", "utils.convert_torch", "render",
               "render.lighting", "render.rasterizer", "cli.demo",
-              "cli.infer", "bench", "ops.fps", "data.interhand_new"):
+              "cli.infer", "bench", "ops.fps", "data.interhand_new",
+              "train.priors"):
         assert f"pdfnet_tpu_torch.{m}" in mods, m
 
 
 @pytest.mark.parametrize("field,value", [
     ("knn_method", "approx"), ("use_img_attn", True), ("s2d_stem", True),
     ("patch_heads", True)])
-def test_build_model_refuses_what_the_port_lacks(field, value):
-    """A Config value whose JAX path the port does not have is refused by
-    name, not run through another path."""
-    cfg = PortConfig().replace(**{field: value})
-    with pytest.raises(NotImplementedError, match=f"{field}="):
-        build_model(cfg, device="cpu")
+def test_build_model_takes_the_handnet_options(field, value):
+    """The values the port once refused build a model and run its eval and
+    train steps on the CPU at a small size (res 192, where the image
+    attention's grid fits); ``tests/test_torch_options.py`` holds them to
+    JAX."""
+    import torch
+    from pdfnet_tpu_torch import (create_train_state, load_loss_consts,
+                                  make_batch, make_eval_step,
+                                  make_train_step)
+    torch.set_num_threads(1)
+    cfg = PortConfig(default_resolution=192, compute_dtype="float32",
+                     sample_num=256, sample_num_level1=128,
+                     sample_num_level2=128, knn_k=8).replace(**{field: value})
+    model = build_model(cfg, device="cpu")
+    consts = load_loss_consts("cpu")
+    batch = make_batch(cfg, 2, seed=0)
+    out = make_eval_step(cfg, model, consts)(batch)
+    assert out["verts_pred"].shape == (2, 2, 778, 3)
+    assert all(bool(torch.isfinite(v).all()) for v in out.values())
+    stats = make_train_step(cfg, model, consts)(
+        create_train_state(cfg, model), batch, 0, 1e-4)
+    assert bool(torch.isfinite(stats["loss"]))
 
 
 @pytest.mark.parametrize("variant", [
@@ -134,14 +153,38 @@ def test_build_model_takes_normals_and_fps(variant):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("arch", "csp_50"), ("arch", "csp_18"), ("zero1_opt_sharding", True),
-    ("image_summary", True), ("photometric_loss", True)])
+    ("arch", "csp_50"), ("arch", "csp_18"), ("zero1_opt_sharding", True)])
 def test_trainer_refuses_what_the_port_lacks(field, value):
     """Before it builds a model."""
     from pdfnet_tpu_torch.train.trainer import Trainer
     cfg = PortConfig().replace(**{field: value})
     with pytest.raises(NotImplementedError, match=f"{field}="):
         Trainer(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("field", ["image_summary", "photometric_loss"])
+def test_trainer_writes_image_summaries(field, tmp_path):
+    """With either value the trainer trains and writes its render grid
+    through the logger every ``image_summary_every`` steps."""
+    import numpy as np
+    import torch
+    from pdfnet_tpu_torch import make_batch
+    from pdfnet_tpu_torch.train.trainer import Logger, Trainer
+    torch.set_num_threads(1)
+    cfg = PortConfig(default_resolution=64, compute_dtype="float32",
+                     sample_num=256, sample_num_level1=128,
+                     sample_num_level2=128, knn_k=8, batch_size=2,
+                     image_summary_every=2, **{field: True})
+    trainer = Trainer(cfg, device="cpu")
+    trainer.init_state()
+    logger = Logger(str(tmp_path), cfg)
+    batches = [make_batch(cfg, 2, seed=s) for s in range(3)]
+    stats = trainer.run_epoch(0, iter(batches), logger)
+    logger.close()
+    assert np.isfinite(stats["loss"])
+    assert ("photometric_loss" in stats) == (field == "photometric_loss")
+    images = sorted(os.listdir(tmp_path / "images"))
+    assert images == ["train_00000001.png", "train_00000003.png"]
 
 
 @pytest.mark.parametrize("flag,value", [("--coordinator", "localhost:1"),

@@ -105,10 +105,23 @@ def test_knn_ball_query_matches_jax(method, radius2):
         assert (idx_t[:, 0, 2] == 0).all() and not valid_t[:, 0, 2].any()
 
 
-def test_knn_ball_query_refuses_approx():
-    pts = torch.from_numpy(_grid_points(0))
-    with pytest.raises(NotImplementedError, match="approx"):
-        grouping.knn_ball_query(pts[:, :S], pts, K, R1, "approx")
+def test_knn_ball_query_approx_matches_jax():
+    """``approx`` on the grid cloud (every distance a bf16 tie somewhere):
+    validity equal to JAX's bit for bit (the same bf16 distances), and an
+    index differs from JAX's only where both name points at the same bf16
+    distance (``approx_max_k`` orders ties its own way;
+    ``tests/test_torch_options.py`` holds the port to ``lax.top_k``)."""
+    pts = _grid_points(0)
+    idx_j, valid_j = jax_grouping.knn_ball_query(
+        jnp.asarray(pts[:, :S]), jnp.asarray(pts), K, R1, "approx")
+    idx_t, valid_t = grouping.knn_ball_query(
+        torch.from_numpy(pts[:, :S]), torch.from_numpy(pts), K, R1,
+        "approx")
+    np.testing.assert_array_equal(valid_t.numpy(), np.asarray(valid_j))
+    d2 = grouping._pairwise_sqdist(torch.from_numpy(pts[:, :S]),
+                                   torch.from_numpy(pts)).to(torch.bfloat16)
+    at = lambda idx: d2.gather(-1, torch.as_tensor(np.asarray(idx)).long())
+    assert torch.equal(at(idx_t), at(idx_j))
 
 
 @pytest.mark.parametrize("method", METHODS)

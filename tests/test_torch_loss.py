@@ -128,7 +128,20 @@ def test_epoch_gate_drops_edge_and_joints2d_terms(consts):
                                rtol=1e-4)
 
 
-def test_photometric_loss_is_a_later_slice(consts):
+def test_photometric_loss_adds_its_terms_and_mines(consts):
+    """``photometric_loss`` adds ``photo + 20 * seg`` to each sample's loss
+    and returns the mean of the hardest ``max(int(0.7 B), 1)`` samples
+    (``tests/test_torch_photometric.py`` holds the terms to JAX)."""
     cfg = port.Config(**SMALL, photometric_loss=True)
-    with pytest.raises(NotImplementedError, match="rendering slice"):
-        port.compute_loss(cfg, consts[1], {}, {}, [], {}, {}, 0)
+    host = port.make_batch(cfg, 4, seed=7)
+    batch = {k: torch.from_numpy(v) for k, v in host.items()}
+    outs = _map(_outputs(cfg, host, seed=8), torch.from_numpy)
+    total, st = port.compute_loss(cfg, consts[1], *outs, batch, 30)
+    base, _ = port.compute_loss(cfg.replace(photometric_loss=False),
+                                consts[1], *outs, batch, 30)
+    assert "photometric_loss" in st and "seg_loss" in st
+    assert torch.isfinite(total) and float(st["seg_loss"]) > 0
+    # base is the mean of the per-sample loss the mining sees minus the
+    # photometric terms; the mined total is at least the batch mean
+    per_mean = base + st["photometric_loss"] + 20.0 * st["seg_loss"]
+    assert float(total) >= float(per_mean) * (1 - 1e-6)
