@@ -107,7 +107,22 @@ Phases, each of which fails the run:
    kernel) likewise, the CPU replaying the card's bf16 selections; (d) the
    CLI with ``--photometric_loss --image_summary --image_summary_every 1``
    for 2 train steps: a (4 * 384, 3 * 384, 3) grid a step.  Each
-   sub-phase prints its seconds.
+   sub-phase prints its seconds;
+13. (run after phase 12; its CLI part inside phase 7, on that tree) the CSP
+   alternate detector, which launches no port kernel (checked, 0 of each):
+   (a) ``Trainer(Config(arch="csp_50"))`` at full width, bf16, batch 8: 3
+   warm-up and 10 timed train steps, samples/s, the peak of
+   ``torch.cuda.max_memory_allocated`` and the device's busy share over 3
+   profiled steps; (b) a float32 train-mode forward at batch 2 on the card
+   against the CPU (frozen norms, the CPU replaying the card's ReLUs) and
+   ``csp_loss`` with ``replicate_reference_quirks`` off and on: outputs,
+   loss terms and gradients within the bounds of phase 5; (c) the same for
+   ``csp_18`` with ``use_uv_prior=True`` (quirks off); (d)
+   ``crop_and_resize`` forward and backward on the card against the CPU on
+   (8, 96, 96, 256) images with 64 boxes at 7x7 and 14x14, and ms a call;
+   (e) the CLI with ``--arch csp_50``: ``--mode train`` 2 steps, the
+   checkpoint restored bit for bit, ``--mode test`` failing with JAX's
+   NotImplementedError.  Each sub-phase prints its seconds.
 
 TF32 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``), so every float32 number is true
@@ -120,6 +135,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2074,6 +2090,395 @@ def options_cli_phase(tree: str, work: str) -> None:
     del trainer
 
 
+# ---- phase 13: the CSP alternate detector -----------------------------------
+
+CSP_ARCHS = (("csp_50", dict(arch="csp_50")),
+             ("csp_18 + uv prior", dict(arch="csp_18", use_uv_prior=True)))
+CROP_CASES = ((8, 96, 96, 256), 64, (7, 14))    # images, boxes, crop sizes
+# crop_and_resize card against CPU, relative to the image's (forward) and
+# the gradient's (backward) largest magnitude: a sample's coordinate (up to
+# 95 here) is rounded to float32 (~8e-6) in another order where the card
+# fuses a multiply-add, which moves its bilinear weights by that much and
+# an output by up to twice the image's scale times it
+CROP_TOL = 1e-4
+# the bf16 step's center focal and size terms against float32 on the same
+# weights: bf16 logits one step apart move a sigmoid's log by ~2**-8 of
+# itself
+BF16_LOSS_TOL = 1e-2
+# the bf16 forward's outputs (hm, wh, each theta, the uv prior) against
+# float32 on the same weights and batch with every norm on the same
+# running statistics, in bf16 steps at the output's largest magnitude
+# (2**-7 of it, the CPU test's measure): each layer rounds its activations
+# to bf16 once.  With batch statistics the two forwards are not compared
+# so: at random weights the norms grow a rounding with depth (flax's bf16
+# model too), and the gap is printed
+BF16_OUT_STEPS = 8
+CSP_DTYPES = {"hm": "bfloat16", "wh": "bfloat16", "uv_prior": "bfloat16",
+              "theta": "float32"}         # flax's, as jax.eval_shape gives
+
+
+def csp_rate(card, label, ccfg, dev) -> None:
+    """The CSP train step through ``Trainer`` (the user's entry point, on
+    the card by default) at batch 8 in bf16: one counted step (no port
+    kernel may launch), its loss terms against a float32 forward of the
+    same weights on the same batch, TRAIN_WARMUP steps, then TRAIN_ITERS
+    timed ones: samples/s, the peak of ``torch.cuda.max_memory_allocated``
+    and the device's busy share over 3 profiled steps.
+
+    The bf16 outputs have flax's dtypes (CSP_DTYPES), and with the norms
+    frozen lie within BF16_OUT_STEPS bf16 steps of the float32 ones.  Of
+    the loss terms, the center focal and size terms are held to
+    BF16_LOSS_TOL of the float32 ones; the MANO-theta terms are printed
+    beside the smallest decoded depth ``tz`` at the centres: they project
+    the hands decoded at random weights, and a ``tz`` near the camera plane
+    turns the thetas' gap into a landmark moved by any amount."""
+    import torch
+    import pdfnet_tpu_torch as port
+    from pdfnet_tpu_torch.models.csp import csp_from_config
+    from pdfnet_tpu_torch.models.layers import BatchNorm
+    from pdfnet_tpu_torch.train.mano_branch import csp_loss
+    from pdfnet_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    trainer = Trainer(ccfg)
+    trainer.init_state()
+    host = port.make_batch(ccfg, BATCH, seed=0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    lr = port.lr_at_epoch(ccfg, 0)
+    run = lambda: trainer.train_step(trainer.state, batch, 0, lr)
+    models = {}
+    for dt in ("bfloat16", "float32"):
+        models[dt] = csp_from_config(ccfg.replace(compute_dtype=dt)).to(dev)
+        models[dt].load_state_dict(trainer.model.state_dict())
+    with torch.no_grad():
+        ret32 = models["float32"].train()(batch["input"], batch["depth"])
+        _, stats32 = csp_loss(ccfg, trainer.consts, ret32, batch, 0)
+        frozen = {}
+        for dt, model in models.items():
+            jitter_bn_(model, seed=2)
+            for m in model.modules():
+                if isinstance(m, BatchNorm):
+                    m.frozen = True
+            frozen[dt] = model(batch["input"], batch["depth"])
+    del models
+    outs = []
+    hook = trainer.model.register_forward_hook(
+        lambda m, i, o: outs.append(o))
+    torch.cuda.synchronize()
+    reset_port_launches()
+    stats = run()
+    torch.cuda.synchronize()
+    check_launches(f"{label} train step [bf16, batch {BATCH}]", {})
+    hook.remove()
+    csp_bf16_outputs(label, outs[0], ret32, frozen, batch["ind"])
+    gaps = {k: abs(float(stats[k]) - float(v)) / max(abs(float(v)), 1e-6)
+            for k, v in stats32.items()}
+    print(f"{label} first train step [batch {BATCH}] bf16 against float32 "
+          f"on the same weights, relative gap by term: " + ", ".join(
+              f"{k} {gaps[k]:.3e} ({float(stats[k]):.6g} / "
+              f"{float(stats32[k]):.6g})" for k in sorted(gaps)))
+    held = [k for k in ("hm_loss", "wh_loss") if k in gaps]
+    check(all(bool(torch.isfinite(v)) for v in stats.values())
+          and all(gaps[k] <= BF16_LOSS_TOL for k in held),
+          f"{label}: bf16 {', '.join(f'{k} {gaps[k]:.3e}' for k in held)} "
+          f"from float32, or a term not finite")
+    del outs, ret32, frozen
+    params0 = [p.detach().clone() for p in trainer.model.parameters()]
+    losses = [stats["loss"]] + [run()["loss"] for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t1 = time.perf_counter()
+    for _ in range(TRAIN_ITERS):
+        losses.append(run()["loss"])
+    torch.cuda.synchronize()
+    rate = BATCH * TRAIN_ITERS / (time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = torch.stack(losses).cpu()
+    moved = sum(bool((p.detach() != q).any())
+                for p, q in zip(trainer.model.parameters(), params0))
+    check(bool(torch.isfinite(losses).all()),
+          f"{label} train step: a loss is not finite: {losses.tolist()}")
+    check(moved > 0.5 * len(params0), f"{label} train step: {moved} of "
+          f"{len(params0)} parameters moved")
+    print(f"{label} train step [bf16, batch {BATCH}]: losses "
+          f"{', '.join(f'{v:.1f}' for v in losses.tolist())}; {moved}/"
+          f"{len(params0)} parameters moved")
+    print(f"{label} train step samples/s [bf16, batch {BATCH}]: {rate:.2f}; "
+          f"peak memory allocated {peak / 2**30:.2f} GiB ({card})")
+    check(peak < CARD_MEMORY, f"{label}: peak {peak / 1e9:.1f} GB does not "
+          f"fit the card")
+    profile(run, f"{ccfg.arch}{'_uv' if ccfg.use_uv_prior else ''}"
+            f"_train_bf16_b{BATCH}", steps=3)
+    print(f"{label} rate phase: {time.perf_counter() - t0:.1f} s")
+    del trainer, batch
+
+
+def _csp_outputs(ret):
+    """``{name: output}`` of a CSP forward, each theta on its own."""
+    out = {k: v for k, v in ret.items() if k != "params"}
+    out.update({f"theta_{j}": t for j, t in enumerate(ret["params"])})
+    return out
+
+
+def _bf16_gaps(ret, ret32):
+    """Per output, the bf16 forward's largest error in bf16 steps at the
+    float32 output's largest magnitude, and the error's norm over the
+    output's."""
+    steps, rel = {}, {}
+    for key, want in _csp_outputs(ret32).items():
+        diff = _csp_outputs(ret)[key].detach().float() - want
+        top = want.abs().max().item()
+        steps[key] = diff.abs().max().item() / 2.0 ** (
+            math.floor(math.log2(max(top, 1e-30))) - 7)
+        rel[key] = (diff.norm() / want.norm().clamp_min(1e-30)).item()
+    return steps, rel
+
+
+def csp_bf16_outputs(label, ret, ret32, frozen, ind) -> None:
+    """The bf16 train-mode forward ``ret`` against the float32 one
+    ``ret32`` on the same weights and batch, and ``frozen`` (both dtypes
+    with every norm on the same running statistics): each bf16 output's
+    dtype is flax's (CSP_DTYPES), and the frozen ones lie within
+    BF16_OUT_STEPS bf16 steps of float32.  Prints both gaps, and the
+    smallest decoded depth ``tz = theta_z + 0.6`` of the last theta at the
+    hand centres ``ind`` (B, 2), both ways."""
+    import torch
+
+    for r in (ret, frozen["bfloat16"]):
+        for key, got in _csp_outputs(r).items():
+            want = CSP_DTYPES["theta" if key.startswith("theta") else key]
+            check(str(got.dtype) == f"torch.{want}", f"{label}: bf16 {key} "
+                  f"is {got.dtype}, flax gives {want}")
+    tz = {}
+    for tag, r in (("bf16", ret), ("f32", ret32)):
+        theta = r["params"][-1].detach().float()
+        B, H, W, C = theta.shape
+        at = theta.reshape(B, H * W, C)[torch.arange(B)[:, None], ind.long()]
+        tz[tag] = torch.stack([at[:, h, 61 * h + 60] for h in (0, 1)],
+                              1) + 0.6
+    fmt = lambda d, f: ", ".join(f"{k} {v:{f}}" for k, v in d.items())
+    steps, rel = _bf16_gaps(frozen["bfloat16"], frozen["float32"])
+    print(f"{label} bf16 forward [batch {BATCH}, frozen norms] against "
+          f"float32, outputs in flax's dtypes; worst error in bf16 steps: "
+          f"{fmt(steps, '.3f')}; error norm / norm: {fmt(rel, '.3e')}")
+    bad = max(steps, key=steps.get)
+    check(steps[bad] <= BF16_OUT_STEPS, f"{label}: frozen bf16 {bad} lies "
+          f"{steps[bad]:.2f} bf16 steps from float32")
+    steps, rel = _bf16_gaps(ret, ret32)
+    print(f"{label} first train step [batch {BATCH}, batch statistics] "
+          f"bf16 outputs against float32: worst error in bf16 steps: "
+          f"{fmt(steps, '.3f')}; error norm / norm: {fmt(rel, '.3e')}; "
+          f"smallest |tz| at the centres {tz['bf16'].abs().min():.4g} "
+          f"(bf16) / {tz['f32'].abs().min():.4g} (f32), largest tz gap "
+          f"{(tz['bf16'] - tz['f32']).abs().max():.3e}")
+
+
+def csp_check(label, ccfg, dev, quirks=(False, True)) -> None:
+    """A float32 train-mode forward at batch 2 on the card against the same
+    weights on the CPU, then ``csp_loss`` and its gradients with
+    ``replicate_reference_quirks`` off and on, on the same forward: every
+    output within STEP_TOL of its magnitude, every loss term within
+    LOSS_TOL, every gradient within GRAD_TOL of its leaf's largest entry.
+    Every BatchNorm normalizes with its (jittered) running statistics, as
+    ``train_check_phase``'s do: live statistics of 2 samples at random
+    init amplify float32 rounding in the backward far past any bar (the
+    CSP detector has no ``freeze_bn_stats``, as in JAX, so the check sets
+    the norms' flag itself).  The CPU replays the card's ReLU decisions (an
+    activation within rounding of 0 passes on one side only)."""
+    import types
+    import torch
+    import torch.nn.functional as F
+    import pdfnet_tpu_torch as port
+    from pdfnet_tpu_torch.models import csp, layers, resnet
+    from pdfnet_tpu_torch.models.csp import build_csp_model
+    from pdfnet_tpu_torch.train.mano_branch import (csp_loss,
+                                                    load_mano_branch_consts)
+
+    t0 = time.perf_counter()
+    c = ccfg.replace(compute_dtype="float32")
+    host = port.make_batch(c, 2, seed=1)
+    masks, flips = [], [0, 0]
+
+    def record_relu(x, inplace=False):
+        masks.append((x > 0).cpu())
+        return F.relu(x)
+
+    def replay_relu(x, inplace=False):
+        card = masks.pop(0)
+        flips[0] += int(((x > 0) != card).sum())
+        flips[1] += card.numel()
+        return torch.where(card, x, torch.zeros_like(x))
+
+    def functional(act):
+        ns = {n: getattr(F, n) for n in dir(F) if not n.startswith("_")}
+        ns.update(relu=act)
+        return types.SimpleNamespace(**ns)
+
+    def frozen(d):
+        model = build_csp_model(c, device=d).train()
+        for m in model.modules():
+            if isinstance(m, layers.BatchNorm):
+                m.frozen = True
+        return model
+
+    model = frozen(dev)
+    jitter_bn_(model, seed=2)
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    runs = []
+    for i, d in enumerate((dev, torch.device("cpu"))):
+        if i:
+            model = frozen(d)
+            model.load_state_dict(state)
+        b = {k: torch.from_numpy(v).to(d) for k, v in host.items()}
+        act = functional(replay_relu if i else record_relu)
+        ret = run_patched([(m, "F", act) for m in (csp, layers, resnet)],
+                          lambda: model(b["input"], b["depth"]))
+        consts = load_mano_branch_consts(d)
+        params = dict(model.named_parameters())
+        side = {"out": {k: v.detach().cpu()
+                        for k, v in _csp_outputs(ret).items()}}
+        for q in quirks:
+            loss, stats = csp_loss(c.replace(replicate_reference_quirks=q),
+                                   consts, ret, b, 25)
+            names = [n for n in params if params[n].requires_grad]
+            grads = torch.autograd.grad(loss, [params[n] for n in names],
+                                        retain_graph=True, allow_unused=True)
+            side[q] = ({k: v.detach().cpu() for k, v in stats.items()},
+                       {n: g.cpu() for n, g in zip(names, grads)
+                        if g is not None})
+        runs.append(side)
+        del model
+    check(not masks, f"{label}: the CPU ran fewer ReLUs than the card")
+    print(f"{label} [f32, batch 2]: the CPU's own ReLU decisions differ from "
+          f"the card's in {flips[0]} of {flips[1]}; the CPU replays the "
+          f"card's")
+    compare_steps(f"{label} forward [f32, batch 2]", runs[0]["out"],
+                  runs[1]["out"])
+    for q in quirks:
+        (got_s, got_g), (want_s, want_g) = runs[0][q], runs[1][q]
+        tag = f"{label} [f32, batch 2, quirks {'on' if q else 'off'}]"
+        worst = 0.0
+        for key, w in want_s.items():
+            err = (got_s[key] - w).abs().item()
+            scale = max(w.abs().item(), 1e-6)
+            worst = max(worst, err / scale)
+            check(err <= LOSS_TOL * scale, f"{tag}: {key} {got_s[key].item()} "
+                  f"on the card, {w.item()} on the CPU")
+        check(sorted(got_g) == sorted(want_g),
+              f"{tag}: the card and the CPU reach different parameters")
+        errs = {}
+        for name, w in want_g.items():
+            scale = max(w.abs().max().item(), 1e-12)
+            errs[name] = ((got_g[name] - w).abs()
+                          - GRAD_TOL * w.abs()).max().item() / scale
+        bad = sorted(errs, key=errs.get, reverse=True)[:3]
+        print(f"{tag} card vs cpu: {len(want_s)} loss terms within "
+              f"{LOSS_TOL} (worst {worst:.3e}); {len(errs)} gradients, "
+              f"worst error / scale: "
+              f"{', '.join(f'{n} {errs[n]:.3e}' for n in bad)}")
+        check(errs[bad[0]] <= GRAD_TOL, f"{tag}: gradient of {bad[0]} "
+              f"differs by {errs[bad[0]]:.3e} of its scale")
+    print(f"{label} float32 check: {time.perf_counter() - t0:.1f} s")
+
+
+def crop_resize_check(card, dev) -> None:
+    """``crop_and_resize`` forward and backward on the card against the CPU
+    on boxes inside, across and outside the images, and ms a call."""
+    import torch
+    from pdfnet_tpu_torch.ops import crop_and_resize
+
+    t0 = time.perf_counter()
+    shape, n, crops = CROP_CASES
+    gen = torch.Generator().manual_seed(3)
+    img = torch.randn(shape, generator=gen)
+    lo = torch.rand(n, 2, generator=gen) * 1.2 - 0.3
+    boxes = torch.cat([lo, lo + torch.rand(n, 2, generator=gen) * 0.6], 1)
+    ind = torch.randint(0, shape[0], (n,), generator=gen, dtype=torch.int32)
+    for crop in crops:
+        g = torch.randn(n, crop, crop, shape[3], generator=gen)
+        res = []
+        for d in (dev, torch.device("cpu")):
+            x = img.to(d).detach().requires_grad_()
+            out = crop_and_resize(x, boxes.to(d), ind.to(d), crop, crop)
+            out.backward(g.to(d))
+            res.append((out.detach().cpu(), x.grad.cpu()))
+        (fo, bo), (fw, bw) = res
+        f_err = (fo - fw).abs().max().item() / img.abs().max().item()
+        b_err = (bo - bw).abs().max().item() / bw.abs().max().item()
+        check(f_err <= CROP_TOL and b_err <= CROP_TOL,
+              f"crop_and_resize {crop}x{crop}: card vs CPU forward "
+              f"{f_err:.3e}, backward {b_err:.3e} of scale")
+        x = img.to(dev).detach().requires_grad_()
+        bx, ix, gx = boxes.to(dev), ind.to(dev), g.to(dev)
+        fwd = time_ms(lambda: crop_and_resize(x, bx, ix, crop, crop))
+        both = time_ms(lambda: crop_and_resize(x, bx, ix, crop, crop)
+                       .backward(gx))
+        print(f"crop_and_resize {tuple(shape)}, {n} boxes at {crop}x{crop}: "
+              f"card vs cpu forward {f_err:.3e}, backward {b_err:.3e} of "
+              f"scale (max_abs_err {(fo - fw).abs().max().item():.3e}); "
+              f"{fwd:.4f} ms forward, {both:.4f} ms forward + backward "
+              f"({card})")
+    print(f"crop_and_resize check: {time.perf_counter() - t0:.1f} s")
+
+
+def csp_phase(card, cfg, dev) -> None:
+    """Phase 13: the CSP detector's train step (csp_50, then csp_18 with the
+    uv prior) through the trainer, their float32 checks, and
+    ``crop_and_resize``."""
+    t0 = time.perf_counter()
+    for label, kw in CSP_ARCHS:
+        ccfg = cfg.replace(**kw)
+        csp_rate(card, label, ccfg, dev)
+        csp_check(label, ccfg, dev,
+                  quirks=(False, True) if kw["arch"] == "csp_50" else (False,))
+    crop_resize_check(card, dev)
+    print(f"csp phase: {time.perf_counter() - t0:.1f} s")
+
+
+def csp_cli_phase(tree: str, work: str) -> None:
+    """(e) ``cli.main --arch csp_50 --mode train`` for 2 steps on phase 7's
+    H2O-format tree (no port kernel launched; no eval, as in JAX), its
+    checkpoint restored bit for bit, then ``--mode test --arch csp_50``
+    failing, as the JAX CLI does, with ``Trainer.evaluate``'s
+    NotImplementedError."""
+    import torch
+    from pdfnet_tpu_torch.cli.main import main as cli_main
+    from pdfnet_tpu_torch.train.trainer import Trainer
+
+    out = os.path.join(work, "out_csp")
+    common = ["--arch", "csp_50", "--cache_path", tree, "--pre_fix", tree,
+              "--output_path", out, "--batch_size", str(BATCH)]
+    t0 = time.perf_counter()
+    reset_port_launches()
+    trainer = cli_main(["--mode", "train", "--num_epochs", "1", "--steps",
+                        "2", "--eval_every", "1", "--save_every", "1"]
+                       + common)
+    torch.cuda.synchronize()
+    check_launches("cli --arch csp_50 --mode train", {})
+    check(trainer.state.step == 2 and trainer.eval_step is None,
+          "cli csp train: not 2 steps, or an eval step")
+    ckpt = os.path.join(out, "ckpt", "default", "model_0")
+    saved = {k: v.cpu() for k, v in trainer.model.state_dict().items()}
+    restored = Trainer(trainer.cfg)
+    restored.init_state(seed=5)
+    restored.load(ckpt)
+    got = restored.model.state_dict()
+    check(sorted(got) == sorted(saved) and all(
+        torch.equal(got[k].cpu(), saved[k]) for k in saved),
+        "cli csp train: the checkpoint does not restore bit for bit")
+    del trainer, restored
+    try:
+        cli_main(["--mode", "test", "--load_model", ckpt] + common)
+        check(False, "cli --mode test --arch csp_50 did not raise")
+    except NotImplementedError as e:
+        check("mesh evaluation is only defined for the flagship HandNet"
+              in str(e), f"cli csp test: unexpected message {e}")
+        print(f"cli --mode test --arch csp_50: NotImplementedError, as in "
+              f"JAX: {e}")
+    print(f"cli --arch csp_50: 2 train steps, checkpoint restored bit for "
+          f"bit; {time.perf_counter() - t0:.1f} s")
+
+
 # ---- phase 7: the train/eval CLI on an H2O-format tree ----------------------
 
 # the mini tree: H2O's frame size and intrinsics, records per split (10 test
@@ -2293,6 +2698,7 @@ def cli_phase(card, dev) -> None:
           f"/ scale {worst:.3e} <= {STEP_TOL}")
     normals_cli_phase(tree, work)
     options_cli_phase(tree, work)
+    csp_cli_phase(tree, work)
     # keep the score files; the tree and the checkpoints (~300 MB each) go
     keep = os.path.join(OUT_DIR, "cli_scores")
     os.makedirs(keep, exist_ok=True)
@@ -2691,6 +3097,7 @@ def main() -> int:
                      if n in SERVE_KERNELS or n == "fused_bottleneck_s2"})
     normals_phase(card, cfg, dev)
     options_phase(card, cfg, dev)
+    csp_phase(card, cfg, dev)
     cli_phase(card, dev)
     cli_serving_phases(card, dev)
 

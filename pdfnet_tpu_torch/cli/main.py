@@ -10,11 +10,14 @@ Usage:
   python -m pdfnet_tpu_torch.cli.main --cpu ...   # on the CPU, not the card
 
 Runs on one CUDA device unless ``--cpu`` is given.  The flags are the JAX
-CLI's, generated from the port's ``Config``.  Refused by name when the flags
-are parsed: ``--arch csp_*`` and ``--zero1_opt_sharding``, whose path the
-port lacks (``check_config``, ``check_trainer_config``), the multi-process
-flags (``--coordinator``, ``--num_processes``, ``--process_id``) and
-``--no-depth``.  Writes ``{output_path}/{dataset}-val.txt`` (val and test)
+CLI's, generated from the port's ``Config``.  ``--arch csp_50|csp_18``
+trains the CSP detector; ``--mode val|test`` with it fails, as in JAX, in
+``Trainer.evaluate`` (NotImplementedError).  Refused by name when the flags
+are parsed: ``--zero1_opt_sharding``, whose path the port lacks
+(``check_trainer_config``), the device limits of ``check_config``, the
+multi-process flags (``--coordinator``, ``--num_processes``,
+``--process_id``) and ``--no-depth``.  Writes
+``{output_path}/{dataset}-val.txt`` (val and test)
 and ``{output_path}/hand_poses.json`` (test), the train logs under
 ``{output_path}/logs`` and the checkpoints under
 ``{output_path}/ckpt/{exp_id}``.
@@ -39,7 +42,7 @@ _CHOICES = {
 
 _HELP = {
     "arch": "resnet50 = flagship HandNet; csp_* = the legacy MANO-theta "
-            "regression detector (train-only; not in the port yet)",
+            "regression detector (train-only)",
     "eval_batch_size": "eval loader batch (default batched: exact via the "
                        "tail pad_mask; set 1 for a reference-identical loop)",
     "bn_stat_groups": "G>1: emulate G DDP replicas exactly — each group "
@@ -167,7 +170,8 @@ def main(argv=None):
     from pdfnet_tpu_torch.models.handnet import check_config
     from pdfnet_tpu_torch.train.trainer import (Trainer, check_trainer_config,
                                                 fit)
-    check_config(cfg)
+    if not cfg.arch.startswith("csp"):
+        check_config(cfg)
     check_trainer_config(cfg)
     device = "cpu" if args.cpu else "cuda"
 

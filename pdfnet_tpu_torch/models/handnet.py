@@ -12,8 +12,9 @@ predicted mask and the depth between the encoder's image and point phases
 (JAX ``handnet.py:60-82``).
 
 The port honours every ``Config`` value the JAX ``HandNet`` reads; it
-refuses only ``arch`` other than ``"resnet50"`` (the CSP family) and the
-shapes beyond the selection kernel's shared memory (``check_config``).
+refuses only the shapes beyond the selection kernel's shared memory
+(``check_config``), and ``arch="csp_*"`` with a ValueError, as JAX does:
+that detector is ``models.csp.build_csp_model``.
 """
 
 from __future__ import annotations
@@ -42,14 +43,15 @@ def compute_dtype(cfg: Config) -> torch.dtype:
 
 
 def check_config(cfg: Config) -> None:
-    """Raise NotImplementedError naming an ``arch`` other than
-    ``"resnet50"`` (the CSP family is not in the port yet), and ValueError
-    naming a ``knn_method`` neither package has or the device limit a value
-    exceeds (the selection kernel's shared memory,
-    ``ops.sa.check_selection_shape``; k <= N at each level)."""
-    if cfg.arch != "resnet50":
-        raise NotImplementedError(f"arch={cfg.arch!r}: the port has HandNet "
-                                  "(resnet50) only so far")
+    """Raise ValueError for an ``arch="csp_*"`` (the CSP detector is
+    ``models.csp.build_csp_model``, as in JAX, ``handnet.py:117-122``), a
+    ``knn_method`` neither package has or the device limit a value exceeds
+    (the selection kernel's shared memory, ``ops.sa.check_selection_shape``;
+    k <= N at each level)."""
+    if cfg.arch.startswith("csp"):
+        raise ValueError(f"arch={cfg.arch!r} is the CSP alternate detector; "
+                         "build it with "
+                         "pdfnet_tpu_torch.models.csp.build_csp_model")
     if cfg.knn_method not in KNN_METHODS:
         raise ValueError(f"knn_method={cfg.knn_method!r}: not one of "
                          f"{', '.join(KNN_METHODS)}")
@@ -196,11 +198,11 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator):
 
 
 @torch.no_grad()
-def init_weights(model: HandNet, seed: int) -> None:
+def init_weights(model: nn.Module, seed: int) -> None:
     """Seeded initialization with the flax model's initializers: lecun-normal
     kernels, zero biases, unit norms, the -4.59 heatmap bias, L2Norm gain
-    10, ``ImgAttn.pos_emb`` normal with std 0.02, and the decoder's
-    unsample layer set from the upsample matrix."""
+    10, ``ImgAttn.pos_emb`` normal with std 0.02, and a ``MeshDecoder``'s
+    unsample layer set from its upsample matrix."""
     gen = torch.Generator().manual_seed(seed)
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
@@ -222,7 +224,8 @@ def init_weights(model: HandNet, seed: int) -> None:
             m.weight.fill_(m.scale_init)
         elif isinstance(m, ImgAttn):
             m.pos_emb.normal_(0.0, 0.02, generator=gen)
-    model.decoder.unsample.weight.copy_(model.decoder.upsample)
+        elif isinstance(m, MeshDecoder):
+            m.unsample.weight.copy_(m.upsample)
 
 
 def build_model(cfg: Config, device="cuda") -> HandNet:

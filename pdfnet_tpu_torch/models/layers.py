@@ -34,15 +34,17 @@ def conv(cin: int, cout: int, k: int, stride: int = 1, bias: bool = False,
 
 class BatchNorm(nn.modules.batchnorm._BatchNorm):
     """BatchNorm over dim 1 of (N, C, ...) with flax's rules (``nn.BatchNorm``
-    with ``momentum=0.9``, ``epsilon=1e-5``, float32 statistics).
+    with ``epsilon=1e-5``, float32 statistics, flax ``momentum``: 0.9 unless
+    given, 0.99 for the CSP detector's ``feat_bn``).
 
     - eval: the running statistics (``F.batch_norm``), in float32 unless
       ``keep_dtype``;
     - train: the batch's float32 mean and its biased variance
       ``max(E[x^2] - E[x]^2, 0)`` (flax's fast variance), normalized as
       ``(x - mean) * (rsqrt(var + eps) * weight) + bias``; the running
-      statistics move by ``0.9 * old + (1 - 0.9) * new``, the biased variance
-      included, where ``torch.nn.BatchNorm*`` would use the unbiased one;
+      statistics move by ``momentum * old + (1 - momentum) * new``, the
+      biased variance included, where ``torch.nn.BatchNorm*`` would use the
+      unbiased one (torch's ``momentum`` is 1 minus flax's);
     - ``frozen`` (``Config.freeze_bn_stats``): train-time normalization with
       the running statistics, which stay as they are; weight and bias train.
 
@@ -50,9 +52,11 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
     ResNet's norms, whose flax dtype is the compute dtype).
     """
 
-    def __init__(self, c: int, keep_dtype: bool = False):
+    def __init__(self, c: int, keep_dtype: bool = False,
+                 momentum: float = 0.9):
         super().__init__(c, eps=BN_EPS)
         self.keep_dtype = keep_dtype
+        self.flax_momentum = momentum
         self.frozen = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -67,19 +71,18 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
             dims = [0, *range(2, x.dim())]
             mean = xf.mean(dims)
             var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            m = self.flax_momentum
             with torch.no_grad():
-                self.running_mean.copy_(0.9 * self.running_mean
-                                        + (1 - 0.9) * mean)
-                self.running_var.copy_(0.9 * self.running_var
-                                       + (1 - 0.9) * var)
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
         shape = (1, -1) + (1,) * (x.dim() - 2)
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(x.dtype) if self.keep_dtype else y
 
 
-def bn(c: int, keep_dtype: bool = False) -> BatchNorm:
-    return BatchNorm(c, keep_dtype)
+def bn(c: int, keep_dtype: bool = False, momentum: float = 0.9) -> BatchNorm:
+    return BatchNorm(c, keep_dtype, momentum)
 
 
 class Dropout(nn.Module):

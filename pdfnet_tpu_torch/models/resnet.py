@@ -1,9 +1,13 @@
-"""ResNet-50 trunk (port of ``pdfnet_tpu/models/resnet.py``, NCHW inside).
+"""ResNet trunks (port of ``pdfnet_tpu/models/resnet.py``, NCHW inside):
+bottleneck blocks (ResNet-50/101) or basic blocks (ResNet-18).
 
 Returns the post-stem feature (before the max-pool) and the four stage
 outputs, as the JAX module does.  Blocks are named ``layer{i}_{b}`` after the
 flax tree.  The norms keep the compute dtype at train time, as the flax
-ones do (``dtype=self.dtype``).
+ones do (``dtype=self.dtype``).  ``in_ch`` is the stem's input width (flax
+infers it; 4 for the CSP detector's RGB-D input), and ``skip_stem`` takes
+an already stem-shaped feature (64 channels at /2), runs only the max-pool
+and the stages and returns that input as the stem (``resnet.py:135-137``).
 
 ``fused_eval`` (``Config.fused_trunk``) routes the stride-1 bottlenecks of
 width >= 128 in stages 1-3 (``layer2_1..3``, ``layer3_1..5``) through
@@ -54,6 +58,29 @@ class Bottleneck(nn.Module):
         return F.relu(y + shortcut)
 
 
+class BasicBlock(nn.Module):
+    """Two 3x3 convs and a residual (JAX ``BasicBlock``, ``resnet.py:51-80``);
+    the projection is a strided 1x1 conv with its norm."""
+
+    def __init__(self, cin: int, width: int, stride: int = 1,
+                 project: bool = False):
+        super().__init__()
+        self.project = project
+        self.conv1 = conv(cin, width, 3, stride)
+        self.bn1 = bn(width, keep_dtype=True)
+        self.conv2 = conv(width, width, 3)
+        self.bn2 = bn(width, keep_dtype=True)
+        if project:
+            self.proj_conv = conv(cin, width, 1, stride)
+            self.proj_bn = bn(width, keep_dtype=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shortcut = self.proj_bn(self.proj_conv(x)) if self.project else x
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        return F.relu(y + shortcut)
+
+
 def s2d_stem_conv(x: torch.Tensor, w7: torch.Tensor) -> torch.Tensor:
     """The 7x7/stride-2 stem conv (padding 3) as a 4x4/stride-1 conv over a
     2x2 space-to-depth input with padding (2, 1), from the same (64, 3, 7,
@@ -74,15 +101,24 @@ def s2d_stem_conv(x: torch.Tensor, w7: torch.Tensor) -> torch.Tensor:
 
 
 class ResNet(nn.Module):
-    """ResNet-v1 with bottleneck blocks (ResNet-50 at the default sizes)."""
+    """ResNet-v1 with bottleneck (ResNet-50 at the default sizes) or basic
+    blocks.  ``fused_eval`` fuses bottlenecks only: a basic trunk ignores
+    it, as in JAX (``resnet.py:162-164``)."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
-                 fused_eval: bool = False, s2d_stem: bool = False):
+                 block: str = "bottleneck", in_ch: int = 3,
+                 skip_stem: bool = False, fused_eval: bool = False,
+                 s2d_stem: bool = False):
         super().__init__()
+        if block not in ("bottleneck", "basic"):
+            raise ValueError(f"block={block!r}: not bottleneck or basic")
+        basic = block == "basic"
         self.fused_eval = fused_eval
         self.s2d_stem = s2d_stem
-        self.conv1 = conv(3, 64, 7, 2, padding=3)
-        self.bn1 = bn(64, keep_dtype=True)
+        self.skip_stem = skip_stem
+        if not skip_stem:
+            self.conv1 = conv(in_ch, 64, 7, 2, padding=3)
+            self.bn1 = bn(64, keep_dtype=True)
         self.block_names = []
         self.fusable = set()
         cin = 64
@@ -91,20 +127,27 @@ class ResNet(nn.Module):
             for b in range(n_blocks):
                 stride = 2 if (b == 0 and i > 0) else 1
                 name = f"layer{i + 1}_{b}"
-                self.add_module(name, Bottleneck(cin, w, stride, project=b == 0))
+                if basic:
+                    blk = BasicBlock(cin, w, stride, project=b == 0 and i > 0)
+                else:
+                    blk = Bottleneck(cin, w, stride, project=b == 0)
+                self.add_module(name, blk)
                 names.append(name)
-                if stride == 1 and w >= 128 and i < 3:
+                if not basic and stride == 1 and w >= 128 and i < 3:
                     self.fusable.add(name)
-                cin = w * 4
+                cin = w if basic else w * 4
             self.block_names.append(names)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         fuse = self.fused_eval and not self.training
         if fuse:
             x = x.contiguous(memory_format=torch.channels_last)
-        stem = (s2d_stem_conv(x, self.conv1.weight) if self.s2d_stem
-                else self.conv1(x))
-        stem = F.relu(self.bn1(stem))                      # (B, 64, H/2, W/2)
+        if self.skip_stem:
+            stem = x
+        else:
+            stem = (s2d_stem_conv(x, self.conv1.weight) if self.s2d_stem
+                    else self.conv1(x))
+            stem = F.relu(self.bn1(stem))                  # (B, 64, H/2, W/2)
         y = F.max_pool2d(stem, 3, stride=2, padding=1)
         outs = []
         for names in self.block_names:
@@ -118,3 +161,15 @@ class ResNet(nn.Module):
                     y = block(y)
             outs.append(y)
         return (stem, *outs)                                # stem, layer1..4
+
+
+def resnet18() -> ResNet:
+    return ResNet((2, 2, 2, 2), block="basic")
+
+
+def resnet50() -> ResNet:
+    return ResNet((3, 4, 6, 3))
+
+
+def resnet101() -> ResNet:
+    return ResNet((3, 4, 23, 3))

@@ -1,7 +1,6 @@
 """Tensor ops of the PyTorch port; ``sa`` holds the CUDA-kernel wrappers.
 
-The exports are those of ``pdfnet_tpu/ops/__init__.py`` that the port has:
-``crop_and_resize`` belongs to the CSP family, not in the port yet.
+The exports are those of ``pdfnet_tpu/ops/__init__.py``.
 """
 
 from pdfnet_tpu_torch.ops.gather import gather_feat, gather_pixels  # noqa: F401
@@ -19,3 +18,4 @@ from pdfnet_tpu_torch.ops.geometry import (  # noqa: F401
 from pdfnet_tpu_torch.ops.fps import farthest_point_sampling  # noqa: F401
 from pdfnet_tpu_torch.ops.resize import (  # noqa: F401
     resize_bilinear_align_corners, upsample2x_nearest)
+from pdfnet_tpu_torch.ops.crop_resize import crop_and_resize  # noqa: F401

@@ -1,6 +1,7 @@
 """Train and eval steps (port of ``pdfnet_tpu/train/step.py``: ``TrainState``,
-``lr_at_epoch``, ``create_train_state``, ``make_train_step`` and
-``make_eval_step``).
+``lr_at_epoch``, ``create_train_state``, ``make_train_step``,
+``make_eval_step``, and the CSP detector's ``make_csp_train_step``, whose
+state ``create_train_state`` makes).
 
 One train step is forward in training mode, ``compute_loss``, backward and
 one Adam update, with the options of the JAX step: gradient accumulation
@@ -19,9 +20,11 @@ import numpy as np
 import torch
 
 from pdfnet_tpu_torch.config import Config
+from pdfnet_tpu_torch.models.csp import CSPNet
 from pdfnet_tpu_torch.models.handnet import HandNet
 from pdfnet_tpu_torch.models.layers import BatchNorm
 from pdfnet_tpu_torch.train.loss import LossConsts, compute_loss, eval_outputs
+from pdfnet_tpu_torch.train.mano_branch import ManoBranchConsts, csp_loss
 
 Batch = Dict[str, Any]
 
@@ -31,7 +34,7 @@ class TrainState:
     """The model (parameters and BatchNorm statistics), its optimizer and
     the number of steps taken."""
 
-    model: HandNet
+    model: HandNet | CSPNet
     optimizer: torch.optim.Adam
     step: int = 0
 
@@ -45,11 +48,12 @@ def lr_at_epoch(cfg: Config, epoch: int) -> float:
     return lr
 
 
-def create_train_state(cfg: Config, model: HandNet) -> TrainState:
+def create_train_state(cfg: Config, model: HandNet | CSPNet) -> TrainState:
     """Adam over every parameter with optax's defaults (betas 0.9/0.999,
     eps 1e-8 added outside the square root, no weight decay) at ``cfg.lr``.
     On the card its step counts stay on the device (``capturable``), so the
-    non-finite guard can restore them without a host sync."""
+    non-finite guard can restore them without a host sync.  It serves the
+    CSP detector too (JAX ``create_csp_train_state``, ``step.py:213-224``)."""
     device = next(model.parameters()).device
     opt = torch.optim.Adam(model.parameters(), lr=cfg.lr, betas=(0.9, 0.999),
                            eps=1e-8, capturable=device.type == "cuda")
@@ -208,6 +212,39 @@ def _guarded_update(opt: torch.optim.Optimizer, ok: torch.Tensor) -> None:
         for k, v in opt.state[p].items():
             if torch.is_tensor(v):
                 v.copy_(torch.where(ok, v, prev.get(k, torch.zeros_like(v))))
+
+
+def make_csp_train_step(cfg: Config, model: CSPNet, consts: ManoBranchConsts
+                        ) -> Callable[..., Dict[str, torch.Tensor]]:
+    """``step(state, batch, epoch, lr, generator=None) -> stats`` for the
+    CSP detector (JAX ``make_csp_train_step``, ``step.py:227-257``): the
+    model in training mode on ``input`` and ``depth`` (its BatchNorm
+    statistics update), ``csp_loss`` with ``epoch`` (the origforward
+    ``alpha`` gate), backward and one Adam update at ``lr``.  There is no
+    dropout, so ``generator`` is unused; like the JAX step it takes no
+    accumulation, BatchNorm groups or non-finite guard.  Returns the loss
+    stats as device tensors."""
+    device = next(model.parameters()).device
+
+    def train_step(state: TrainState, batch: Batch, epoch: int, lr: float,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Dict[str, torch.Tensor]:
+        del generator
+        if not model.training:
+            model.train()
+        opt = state.optimizer
+        b = _to_device(batch, device)
+        opt.zero_grad(set_to_none=True)
+        loss, stats = csp_loss(cfg, consts, model(b["input"], b["depth"]), b,
+                               epoch)
+        loss.backward()
+        for g in opt.param_groups:
+            g["lr"] = lr
+        opt.step()
+        state.step += 1
+        return {k: v.detach() for k, v in stats.items()}
+
+    return train_step
 
 
 def make_eval_step(cfg: Config, model: HandNet, consts: LossConsts

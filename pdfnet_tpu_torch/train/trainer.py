@@ -7,11 +7,14 @@ unless the caller asks for the CPU (``device="cpu"``); one process.  A step
 is forward, loss, backward and the Adam update (``train.step``); the epoch's
 stats stay on the device between the logging steps.
 
-Refused by name, as the port has no path for them yet: ``arch="csp_*"``
-(the CSP detector) and ``zero1_opt_sharding`` (optimizer-state sharding
-over processes).  With ``photometric_loss`` or ``image_summary`` the epoch
-writes an ``input | pred | gt`` render grid every ``image_summary_every``
-steps (rendered on the trainer's device) through ``Logger.image``.
+``arch="csp_*"`` trains the CSP detector (``models.csp``, ``csp_loss``), as
+the JAX trainer dispatches on it (``trainer.py:65-76``); it has no eval
+step, so ``evaluate`` raises and ``fit`` skips the evaluation.  Refused by
+name, as the port has no path for it yet: ``zero1_opt_sharding``
+(optimizer-state sharding over processes).  With ``photometric_loss`` or
+``image_summary`` the epoch writes an ``input | pred | gt`` render grid
+every ``image_summary_every`` steps (rendered on the trainer's device)
+through ``Logger.image``; the CSP detector writes none, as in JAX.
 """
 
 from __future__ import annotations
@@ -27,30 +30,27 @@ import torch
 
 from pdfnet_tpu_torch.config import Config
 from pdfnet_tpu_torch.data.prefetch import prefetch
-from pdfnet_tpu_torch.models.handnet import (HandNet, build_model,
-                                             init_weights, resolve_device)
+from pdfnet_tpu_torch.models.csp import CSPNet, csp_from_config
+from pdfnet_tpu_torch.models.handnet import (HandNet, init_weights,
+                                             resolve_device)
 from pdfnet_tpu_torch.render.rasterizer import render_two_hands
 from pdfnet_tpu_torch.train import checkpoint as ckpt_lib
 from pdfnet_tpu_torch.train.loss import load_loss_consts
+from pdfnet_tpu_torch.train.mano_branch import load_mano_branch_consts
 from pdfnet_tpu_torch.train.metrics import MetricAccumulator
 from pdfnet_tpu_torch.train.step import (TrainState, create_train_state,
-                                         lr_at_epoch, make_eval_step,
-                                         make_train_step)
+                                         lr_at_epoch, make_csp_train_step,
+                                         make_eval_step, make_train_step)
 from pdfnet_tpu_torch.utils.profiler import StepProfiler
 
 
 def check_trainer_config(cfg: Config) -> None:
     """Raise NotImplementedError naming each Config value of the trainer
     whose JAX path the port does not have."""
-    refused = []
-    if cfg.arch.startswith("csp"):
-        refused.append(f"arch={cfg.arch!r} (the CSP detector)")
     if cfg.zero1_opt_sharding:
-        refused.append("zero1_opt_sharding=True (optimizer-state sharding "
-                       "over processes)")
-    if refused:
-        raise NotImplementedError("the port's trainer does not implement "
-                                  + "; ".join(refused))
+        raise NotImplementedError(
+            "the port's trainer does not implement zero1_opt_sharding=True "
+            "(optimizer-state sharding over processes)")
 
 
 class Logger:
@@ -88,18 +88,30 @@ class Logger:
 
 class Trainer:
     """The model, its loss constants, train and eval steps, and the train
-    state, on one device."""
+    state, on one device.  ``arch="csp_*"`` builds the CSP detector with
+    its MANO constants and train step, and no eval step.  As in JAX, the
+    weights are drawn by ``init_state``: until then a model the trainer
+    builds holds torch's default initialization."""
 
-    def __init__(self, cfg: Config, model: Optional[HandNet] = None,
+    def __init__(self, cfg: Config, model: Optional[HandNet | CSPNet] = None,
                  device="cuda"):
         check_trainer_config(cfg)
         self.cfg = cfg
+        self.is_csp = cfg.arch.startswith("csp")
         self.device = resolve_device(device)
-        self.model = (model if model is not None
-                      else build_model(cfg, device=self.device))
-        self.consts = load_loss_consts(self.device)
-        self.train_step = make_train_step(cfg, self.model, self.consts)
-        self.eval_step = make_eval_step(cfg, self.model, self.consts)
+        if model is None:
+            model = csp_from_config(cfg) if self.is_csp else HandNet(cfg)
+            model = model.to(self.device).eval()
+        self.model = model
+        if self.is_csp:
+            self.consts = load_mano_branch_consts(self.device)
+            self.train_step = make_csp_train_step(cfg, self.model,
+                                                  self.consts)
+            self.eval_step = None
+        else:
+            self.consts = load_loss_consts(self.device)
+            self.train_step = make_train_step(cfg, self.model, self.consts)
+            self.eval_step = make_eval_step(cfg, self.model, self.consts)
         self.state: Optional[TrainState] = None
         self.profiler = StepProfiler(cfg.profile_dir, cfg.profile_start_step,
                                      cfg.profile_num_steps,
@@ -174,10 +186,10 @@ class Trainer:
         of a host batch (reference base_trainer.py:174-190 image_summary):
         the eval step's absolute meshes rendered on the trainer's device
         and laid over the input.  Returns a uint8 BGR image, or None before
-        ``init_state``."""
+        ``init_state`` or without an eval step (the CSP detector)."""
         from pdfnet_tpu_torch.utils.vis import denormalize_image
 
-        if self.state is None:
+        if self.state is None or self.eval_step is None:
             return None
         cfg = self.cfg
         n = min(max_imgs, batch["input"].shape[0])
@@ -209,7 +221,13 @@ class Trainer:
                  ) -> MetricAccumulator:
         """The eval step over ``batches`` into a ``MetricAccumulator``: the
         loader's padded tail runs with its batch, and its padded rows
-        (``pad_mask`` 0) are dropped by the accumulator."""
+        (``pad_mask`` 0) are dropped by the accumulator.  The CSP detector
+        has no eval step and raises NotImplementedError, as in JAX."""
+        if self.eval_step is None:
+            raise NotImplementedError(
+                "mesh evaluation is only defined for the flagship HandNet "
+                "arch; the CSP detector is a training-era alternate "
+                "(reference origforward path)")
         acc = MetricAccumulator()
         seen = 0
         next_vis = 0
@@ -289,7 +307,8 @@ def fit(cfg: Config, train_data, eval_data=None, log_dir: str = "outputs/logs",
     """Full training recipe (scripts/train.sh equivalent) on one device:
     epochs of ``run_epoch`` over a prefetched loader, the step-decay LR,
     an evaluation every ``eval_every`` epochs appended to
-    ``{log_dir}/{dataset}-val.txt``, a checkpoint every ``save_every``."""
+    ``{log_dir}/{dataset}-val.txt`` (none for the CSP detector), a
+    checkpoint every ``save_every``."""
     trainer = Trainer(cfg, device=device)
     logger = Logger(log_dir, cfg)
     trainer.init_state()
@@ -310,8 +329,8 @@ def fit(cfg: Config, train_data, eval_data=None, log_dir: str = "outputs/logs",
             logger.write(
                 f"epoch {epoch}: loss={means.get('loss', float('nan')):.3f} "
                 f"({time.time() - t0:.1f}s, lr={lr_at_epoch(cfg, epoch):.2e})")
-            if (eval_data is not None and eval_every > 0
-                    and (epoch + 1) % eval_every == 0):
+            if (eval_data is not None and trainer.eval_step is not None
+                    and eval_every > 0 and (epoch + 1) % eval_every == 0):
                 acc = trainer.evaluate(
                     eval_data.batches(cfg.eval_batch_size, 0))
                 acc.all_reduce()

@@ -19,6 +19,7 @@ import pdfnet_tpu_torch.config as port_config
 from pdfnet_tpu_torch import bench
 
 from test_torch_eval_step import SMALL
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TINY = ["--batch", "2", "--iters", "2", "--warmup", "1", "--res", "64",
         "--train_batch", "2"]

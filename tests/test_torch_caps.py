@@ -21,6 +21,7 @@ from pdfnet_tpu_torch import build_model
 from pdfnet_tpu_torch.config import Config
 from pdfnet_tpu_torch.models.handnet import check_config
 from pdfnet_tpu_torch.ops import sa
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 H, N, S, K = 2, 2048, 128, 128
 R1, R2 = 0.015, 0.04

@@ -15,18 +15,11 @@ import torch
 
 import pdfnet_tpu_torch as port
 from pdfnet_tpu_torch.train import checkpoint as ckpt_lib
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(default_resolution=64, compute_dtype="float32", sample_num=256,
              sample_num_level1=128, sample_num_level2=128, knn_k=8,
              dropout=0.0)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _state(seed=0):

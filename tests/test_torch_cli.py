@@ -31,18 +31,11 @@ from pdfnet_tpu_torch.cli.main import build_argparser, config_from_args, main
 from pdfnet_tpu_torch.config import Config
 
 from test_h2o_dataset import h2o_tree  # noqa: F401  (fixture reuse)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = ["--default_resolution", "64", "--sample_num", "256",
          "--sample_num_level1", "128", "--sample_num_level2", "128",
          "--knn_k", "8", "--compute_dtype", "float32", "--num_workers", "2"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_every_config_field_is_cli_reachable():
@@ -98,13 +91,16 @@ def test_no_depth_is_refused():
 
 
 @pytest.mark.parametrize("argv,exc,name", [
-    (["--arch", "csp_50"], NotImplementedError, "arch="),
+    (["--mode", "test", "--arch", "csp_50", "--synthetic"],
+     NotImplementedError, "mesh evaluation"),
     (["--zero1_opt_sharding"], NotImplementedError, "zero1_opt_sharding="),
     (["--knn_k", "600"], ValueError, "knn_k=600"),
     (["--sample_num", "4096", "--sample_num_level1", "4096", "--knn_k",
       "4096"], ValueError, "MAX_SMEM")])
 def test_config_values_are_refused_at_parse(argv, exc, name, tmp_path):
-    """Refused before any data is read (the cache path does not exist)."""
+    """Refused before any data is read (the cache path does not exist; a
+    CSP arch's evaluation raises, as JAX's does, before its first
+    synthetic batch)."""
     with pytest.raises(exc, match=name):
         main(argv + ["--cpu", "--cache_path", str(tmp_path / "none")])
 

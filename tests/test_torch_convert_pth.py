@@ -31,6 +31,7 @@ from pdfnet_tpu_torch import convert
 from pdfnet_tpu_torch.utils import convert_torch as port_ct
 
 from test_torch_eval_step import SMALL, TOL, _batch, jax_variables
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 # the mapping's transforms run backwards: flax layout -> reference layout
 INVERSE = {

@@ -20,6 +20,7 @@ from pdfnet_tpu.data.prefetch import prefetch as jax_prefetch
 from pdfnet_tpu_torch.data import augment as aug
 from pdfnet_tpu_torch.data.loader import iter_batches
 from pdfnet_tpu_torch.data.prefetch import prefetch
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("rot,shift", [(0, (0.0, 0.0)), (37, (0.1, -0.2)),

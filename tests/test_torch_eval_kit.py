@@ -14,6 +14,7 @@ import pytest
 from pdfnet_tpu.utils import eval_kit as jax_kit
 
 from pdfnet_tpu_torch.utils import eval_kit as port_kit
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _hands(seed, n, verts=778):

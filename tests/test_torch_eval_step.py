@@ -30,6 +30,7 @@ from pdfnet_tpu.train.step import make_eval_step as jax_eval_step
 import pdfnet_tpu_torch as port
 from pdfnet_tpu_torch import convert
 from pdfnet_tpu_torch.ops import sa
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(default_resolution=64, compute_dtype="float32", sample_num=256,
              sample_num_level1=128, sample_num_level2=128, knn_k=8)

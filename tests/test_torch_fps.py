@@ -25,6 +25,7 @@ from pdfnet_tpu.ops import fps as jax_fps
 
 from pdfnet_tpu_torch.data import cloud
 from pdfnet_tpu_torch.ops import fps
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _clouds(kind, H=6, N=256, seed=0):

@@ -47,20 +47,13 @@ from pdfnet_tpu_torch.ops import grouping, sa
 
 from test_torch_eval_step import TOL, jax_variables
 from test_torch_train_step import LOSS_TOL, _assert_grads_close, _recording
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(default_resolution=64, compute_dtype="float32", sample_num=256,
              sample_num_level1=128, sample_num_level2=128, knn_k=8,
              sample_strategy="FPS", input_feature_num=6, batch_size=2,
              dropout=0.0, freeze_bn_stats=True)
 EPOCH, LR = 30, 1e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _batch():

@@ -27,6 +27,7 @@ from pdfnet_tpu.ops import grouping as jax_grouping
 from pdfnet_tpu.ops.pallas_knn import group_feat_pallas, knn_gather_xyz_pallas
 
 from pdfnet_tpu_torch.ops import grouping
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 H, N, S, K = 2, 256, 128, 8
 R1, R2 = 0.015, 0.04

@@ -38,20 +38,13 @@ from pdfnet_tpu_torch.data.h2o import H2ODataset, build_dataset
 from pdfnet_tpu_torch.mano import layer as mano
 
 from test_h2o_dataset import _single_hand_tree, h2o3d_tree, h2o_tree  # noqa
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 MANO_KEYS = ("verts_left_gt", "verts_right_gt", "verts2d_left_gt",
              "verts2d_right_gt", "joints_left_gt", "joints_right_gt",
              "lms_left_gt", "lms_right_gt", "wh", "off_hm", "off_lms")
 ROUNDED_KEYS = ("ind", "hm", "hms", "valid")
 MANO_TOL = dict(rtol=1e-5, atol=1e-5)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _compare(got, want):

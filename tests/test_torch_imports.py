@@ -1,11 +1,11 @@
 """Package hygiene of the PyTorch port: it imports nothing of JAX or of the
 JAX package, its ``Config`` mirrors ``pdfnet_tpu.config.Config``, every
-entry point refuses by name the values whose JAX path it lacks
-(``build_model``'s CSP archs, the trainer's, the CLI's multi-process flags)
-and the device limits that remain (the selection kernel's shared memory),
-and the values it has since taken (FPS, normals, ``knn_method="approx"``,
+entry point refuses by name the values whose JAX path it lacks (the
+trainer's ``zero1_opt_sharding``, the CLI's multi-process flags) and the
+device limits that remain (the selection kernel's shared memory), and the
+values it has since taken (FPS, normals, ``knn_method="approx"``,
 ``use_img_attn``, ``s2d_stem``, ``patch_heads``, ``image_summary``,
-``photometric_loss``) build a model and run."""
+``photometric_loss``, the CSP archs) build a model and run."""
 
 import dataclasses
 import os
@@ -20,6 +20,7 @@ import pdfnet_tpu_torch
 from pdfnet_tpu.config import Config as JaxConfig
 from pdfnet_tpu_torch import HandNet, build_model
 from pdfnet_tpu_torch.config import Config as PortConfig
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "pdfnet_tpu_torch")
@@ -88,7 +89,8 @@ def test_new_modules_are_walked():
               "utils.eval_kit", "utils.convert_torch", "render",
               "render.lighting", "render.rasterizer", "cli.demo",
               "cli.infer", "bench", "ops.fps", "data.interhand_new",
-              "train.priors"):
+              "train.priors", "models.csp", "ops.crop_resize",
+              "train.mano_branch"):
         assert f"pdfnet_tpu_torch.{m}" in mods, m
 
 
@@ -152,14 +154,27 @@ def test_build_model_takes_normals_and_fps(variant):
     assert pointnet.sft0.scale1.out_features == c
 
 
-@pytest.mark.parametrize("field,value", [
-    ("arch", "csp_50"), ("arch", "csp_18"), ("zero1_opt_sharding", True)])
+@pytest.mark.parametrize("field,value", [("zero1_opt_sharding", True)])
 def test_trainer_refuses_what_the_port_lacks(field, value):
     """Before it builds a model."""
     from pdfnet_tpu_torch.train.trainer import Trainer
     cfg = PortConfig().replace(**{field: value})
     with pytest.raises(NotImplementedError, match=f"{field}="):
         Trainer(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["csp_50", "csp_18"])
+def test_trainer_builds_the_csp_archs(arch):
+    """The CSP archs, which the trainer once refused, build the CSP
+    detector with its MANO constants and train step, and no eval step
+    (``tests/test_torch_csp.py`` trains and holds them to JAX)."""
+    from pdfnet_tpu_torch.models.csp import CSPNet
+    from pdfnet_tpu_torch.train.mano_branch import ManoBranchConsts
+    from pdfnet_tpu_torch.train.trainer import Trainer
+    trainer = Trainer(PortConfig(arch=arch), device="cpu")
+    assert isinstance(trainer.model, CSPNet)
+    assert isinstance(trainer.consts, ManoBranchConsts)
+    assert trainer.eval_step is None and trainer.train_step is not None
 
 
 @pytest.mark.parametrize("field", ["image_summary", "photometric_loss"])
@@ -226,7 +241,10 @@ def test_model_honours_knn_method_and_fused_trunk(knn_method):
                                    "pdfnet_tpu_torch.mano.layer:load_mano_consts",
                                    "pdfnet_tpu_torch.train.trainer:Trainer",
                                    "pdfnet_tpu_torch.train.trainer:fit",
-                                   "pdfnet_tpu_torch.bench:main"])
+                                   "pdfnet_tpu_torch.bench:main",
+                                   "pdfnet_tpu_torch.models.csp:build_csp_model",
+                                   "pdfnet_tpu_torch.train.mano_branch:"
+                                   "load_mano_branch_consts"])
 def test_entry_points_default_to_the_card(entry):
     """Every public loader or model constructor that takes a device runs on
     the card unless the caller asks for the CPU."""

@@ -5,7 +5,7 @@ end to end: ``infer_rgbd`` + ``eval_outputs(..., {"K_new": K})`` with
 Both packages run the same seeded random weights (carried across by
 ``convert.from_flax``) on the bench's random batch (``bench.py:56-68``:
 input, depth uniform in 0.3-0.8 m, K, valid) at a small float32 config
-with deterministic point sampling.  The JAX model runs its Pallas trunk
+with deterministic point sampling.  The JAX model runs, jitted, its Pallas trunk
 kernel in interpret mode (``_TRUNK_INTERPRET``); its ``knn_method="pallas"``
 runs the ``topk`` branch off the TPU (``grouping.py:79-80``), whose
 neighbour sets equal the port's exact selection except at rounding-level
@@ -40,6 +40,7 @@ from pdfnet_tpu_torch.ops import grouping as port_grouping
 from pdfnet_tpu_torch.ops import sa, trunk
 
 from test_torch_eval_step import SMALL, _batch, jax_variables
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 SERVE = dict(SMALL, knn_method="pallas", fused_trunk=True,
              sample_deterministic=True)
@@ -54,6 +55,19 @@ def _recording(module, name, log):
     def run(*args, **kwargs):
         out = fn(*args, **kwargs)
         log.append(out)
+        return out
+    return run
+
+
+def _jax_recording(module, name, log):
+    """``_recording`` from inside a jitted JAX function: each call's outputs
+    reach ``log`` as numpy arrays through ``jax.debug.callback``."""
+    fn = getattr(module, name)
+
+    def run(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        jax.debug.callback(lambda *a: log.append(tuple(map(np.asarray, a))),
+                           *out, ordered=True)
         return out
     return run
 
@@ -88,19 +102,25 @@ def run_serving(monkeypatch):
 
     jax_clouds, jax_nbrs = [], []
     monkeypatch.setattr(pallas_trunk, "_TRUNK_INTERPRET", True)
-    monkeypatch.setattr(jax_handnet, "depth_to_hand_clouds", _recording(
+    monkeypatch.setattr(jax_handnet, "depth_to_hand_clouds", _jax_recording(
         jax_handnet, "depth_to_hand_clouds", jax_clouds))
-    monkeypatch.setattr(jax_grouping, "knn_ball_query", _recording(
+    monkeypatch.setattr(jax_grouping, "knn_ball_query", _jax_recording(
         jax_grouping, "knn_ball_query", jax_nbrs))
-    model_j = jax_build_model(cfg_j)
+    model_j, consts_j = jax_build_model(cfg_j), jax_consts()
+
+    def serve(v, img, depth, K, valid, key):
+        out = jax_handnet.infer_rgbd(model_j, v, img, depth, K, valid, key)
+        return jax_eval_outputs(cfg_j, consts_j, *out, {"K_new": K}), \
+            out[3]["mask"]
+
+    # one compile: run eagerly, the apply dispatches its ~1,000 primitives
+    # (the interpret-mode trunk kernel among them) one by one
     with jax.default_matmul_precision("highest"):
-        out = jax_handnet.infer_rgbd(model_j, variables,
-                                     *map(jnp.asarray, inputs),
+        ref, mask_j = jax.jit(serve)(variables, *map(jnp.asarray, inputs),
                                      jax.random.PRNGKey(0))
-        ref = jax_eval_outputs(cfg_j, jax_consts(), *out,
-                               {"K_new": jnp.asarray(batch["K_new"])})
+        jax.effects_barrier()
     ref = {k: np.asarray(ref[k]) for k in KEYS}
-    mask_j = np.asarray(out[3]["mask"])
+    mask_j = np.asarray(mask_j)
 
     port_clouds, port_nbrs = [], []
     monkeypatch.setattr(port_handnet, "depth_to_hand_clouds", _recording(

@@ -17,7 +17,6 @@ import shutil
 
 import numpy as np
 import pytest
-import torch
 
 from pdfnet_tpu import native as jax_native
 from pdfnet_tpu.config import Config as JaxConfig
@@ -27,19 +26,12 @@ from pdfnet_tpu_torch.config import Config
 from pdfnet_tpu_torch.data.interhand_new import InterHandNewDataset
 
 from test_interhand_new import ihn_tree  # noqa: F401  (fixture reuse)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 MANO_KEYS = ("verts_left_gt", "verts_right_gt", "verts2d_left_gt",
              "verts2d_right_gt", "joints_left_gt", "joints_right_gt",
              "lms_left_gt", "lms_right_gt", "wh", "off_hm", "off_lms")
 MANO_TOL = dict(rtol=1e-5, atol=1e-5)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -26,6 +26,7 @@ from pdfnet_tpu.ops.pallas_knn import knn_pallas
 from pdfnet_tpu_torch import convert
 from pdfnet_tpu_torch.models.pointnet import PointNetPlus
 from pdfnet_tpu_torch.ops import grouping, sa
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 H, N, S, K = 2, 256, 128, 8
 R1, R2 = 0.015, 0.04

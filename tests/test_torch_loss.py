@@ -19,6 +19,7 @@ from pdfnet_tpu.train.loss import compute_loss as jax_compute_loss
 from pdfnet_tpu.train.loss import load_loss_consts as jax_consts
 
 import pdfnet_tpu_torch as port
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(default_resolution=64, compute_dtype="float32", sample_num=256,
              sample_num_level1=128, sample_num_level2=128, knn_k=8)

@@ -13,6 +13,7 @@ from pdfnet_tpu.train.metrics import MetricAccumulator as JaxAccumulator
 from pdfnet_tpu_torch.train.metrics import MetricAccumulator
 
 from test_metrics_parity import _fake_eval_stream
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _batched(stream, bs):

@@ -26,6 +26,7 @@ from pdfnet_tpu_torch.models.gcn_decoder import MeshDecoder
 from pdfnet_tpu_torch.models.resnet import ResNet
 
 from test_torch_eval_step import _random_like
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 

@@ -23,6 +23,7 @@ from pdfnet_tpu_torch import native
 from pdfnet_tpu_torch.data.cloud import backproject_np, sample_hand_cloud
 from pdfnet_tpu_torch.data.targets import (centernet_targets, draw_gaussian,
                                            gaussian2d)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 K = np.array([[120.0, 0, 64], [0, 120.0, 64], [0, 0, 1]], np.float32)
 

@@ -31,6 +31,7 @@ from pdfnet_tpu.ops import geometry as jax_geometry
 
 from pdfnet_tpu_torch.ops import geometry
 from pdfnet_tpu_torch.ops.pointcloud import normals_at
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 H2O_K = np.array([[636.6593, 0.0, 64.0], [0.0, 636.2520, 48.0], [0, 0, 1]],
                  np.float32)

@@ -21,6 +21,7 @@ from pdfnet_tpu.ops import heatmap as jheat
 from pdfnet_tpu.ops import resize as jresize
 
 from pdfnet_tpu_torch.ops import chebconv, gather, geometry, heatmap, resize
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 EXACT = dict(atol=0, rtol=0)

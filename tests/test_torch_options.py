@@ -58,7 +58,7 @@ from test_torch_eval_step import TOL as STEP_TOL
 from test_torch_eval_step import _batch, jax_variables
 from test_torch_models import TOL, _close_scaled, _nchw, _nhwc, _port
 from test_torch_models import _variables
-from test_torch_train_step import one_torch_thread  # noqa: F401
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 HEADS = {"hm": 2, "wh": 2, "params": 122, "texture": 2334, "light": 27}
 ENC = dict(fmap_dim=128, global_feature_dim=256, heatmap_dim=21, hand_num=2,

@@ -48,8 +48,8 @@ from pdfnet_tpu_torch.train.trainer import Logger, Trainer
 
 from test_torch_eval_step import jax_variables
 from test_torch_loss import _map, _outputs
-from test_torch_train_step import (_assert_grads_close, _recording,
-                                   one_torch_thread)  # noqa: F401
+from test_torch_train_step import _assert_grads_close, _recording
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(default_resolution=64, compute_dtype="float32", sample_num=256,
              sample_num_level1=128, sample_num_level2=128, knn_k=8,

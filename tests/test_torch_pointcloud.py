@@ -29,6 +29,7 @@ import torch
 from pdfnet_tpu.ops import pointcloud as jax_pointcloud
 
 from pdfnet_tpu_torch.ops import pointcloud
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 B, HW, NPTS = 2, 32, 64
 

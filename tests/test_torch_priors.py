@@ -24,6 +24,7 @@ from pdfnet_tpu.train import priors as jax_priors
 from pdfnet_tpu_torch import assets
 from pdfnet_tpu_torch.mano import layer as mano
 from pdfnet_tpu_torch.train import priors
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 REL = dict(rtol=1e-6, atol=1e-7)
 

@@ -22,6 +22,7 @@ from pdfnet_tpu.render import rasterizer as jax_rast
 from pdfnet_tpu_torch import assets
 from pdfnet_tpu_torch.mano import layer as mano
 from pdfnet_tpu_torch.render import lighting, rasterizer
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 TRI = [[8.0, 4.0], [56.0, 4.0], [32.0, 56.0]]

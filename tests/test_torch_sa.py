@@ -33,6 +33,7 @@ from pdfnet_tpu.ops.pallas_knn import (_mlp_folded, group_feat_pallas,
 from pdfnet_tpu_torch import convert
 from pdfnet_tpu_torch.models.pointnet import PointMLP, PointNetPlus, _fold_point_mlp
 from pdfnet_tpu_torch.ops import sa
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 H, N, S, K = 2, 256, 128, 8

@@ -37,6 +37,7 @@ from pdfnet_tpu.mano import layer as jax_mano
 import pdfnet_tpu_torch as port
 from pdfnet_tpu_torch.data import cloud, targets
 from pdfnet_tpu_torch.mano import layer as mano
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 SMALL = dict(default_resolution=64, sample_num=256, sample_num_level1=128,

@@ -59,6 +59,7 @@ from pdfnet_tpu_torch.ops import sa
 from pdfnet_tpu_torch.ops.sa import knn_plain as sa_knn_plain
 
 from test_torch_eval_step import _random_like, jax_variables
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(default_resolution=64, compute_dtype="float32", sample_num=256,
              sample_num_level1=128, sample_num_level2=128, knn_k=8,
@@ -74,17 +75,6 @@ TRAJ_TOL = dict(rtol=1e-3)
 # and eager gradients differ by 1.1e-3 on the level-1 PointNet++ weights,
 # whose gradient sums thousands of cancelling products with centered xyz.
 GRAD_RTOL = 1e-2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for this module's model steps: the suite runs
-    several pytest workers at once, and a torch thread pool per worker over
-    the same cores slows these steps by up to two orders of magnitude."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _batch(seed=0):
@@ -135,6 +125,17 @@ def _recording(fn, pick, log):
     return run
 
 
+def jit_update(tx):
+    """``tx.update`` then ``optax.apply_updates``, as the JAX train step
+    makes its update, under one ``jax.jit``: run eagerly, the update
+    dispatches and compiles each leaf's ops on their own (~40 s a step on
+    the CPU)."""
+    def update(grads, opt, params):
+        updates, opt = tx.update(grads, opt, params)
+        return optax.apply_updates(params, updates), opt
+    return jax.jit(update)
+
+
 def run_jax():
     """JAX: variables, the batch, the first step's stats and gradients, the
     loss of each of STEPS steps, and every grouping call's selection."""
@@ -167,7 +168,8 @@ def run_jax():
         saved[2], lambda out: (out[2], out[1]), selections)
     try:
         grad_fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
-        params, opt = variables["params"], tx.init(variables["params"])
+        update = jit_update(tx)
+        params, opt = variables["params"], jax.jit(tx.init)(variables["params"])
         losses, first = [], None
         for _ in range(STEPS):
             (loss, stats), grads = grad_fn(params, jb)
@@ -175,8 +177,7 @@ def run_jax():
                               jax.tree.map(np.asarray, grads))
             losses.append(float(loss))
             opt.hyperparams["learning_rate"] = jnp.asarray(LR, jnp.float32)
-            updates, opt = tx.update(grads, opt, params)
-            params = optax.apply_updates(params, updates)
+            params, opt = update(grads, opt, params)
         jax.effects_barrier()
     finally:
         (grouping._FUSED_INTERPRET, pallas_knn.knn_gather_xyz_pallas,

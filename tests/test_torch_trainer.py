@@ -3,7 +3,8 @@ package's, end to end on the H2O fixture tree of
 ``tests/test_h2o_dataset.py``.
 
 JAX's ``fit`` runs first: its ``Trainer.init_state`` draws the weights
-(seed 317), which the port's ``fit`` then starts from (carried across by
+(seed 317; ``create_train_state`` with its ``model.init`` jitted), which
+the port's ``fit`` then starts from (carried across by
 ``convert.from_flax``; the port's ``init_state`` is wrapped to load them).
 Both fit one epoch of 2 steps at batch 1 with ``dropout=0`` and the same
 ``lr_at_epoch``, evaluate the test split at eval batch 2 (3 records: a
@@ -34,14 +35,16 @@ parameters still move (checked).
 
 import os
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from pdfnet_tpu.config import Config as JaxConfig
 from pdfnet_tpu.data.h2o import H2ODataset as JaxDataset
 from pdfnet_tpu.ops import grouping as jax_grouping
 from pdfnet_tpu.train import trainer as jax_trainer
+from pdfnet_tpu.train.step import TrainState, make_optimizer
 
 from pdfnet_tpu_torch import convert
 from pdfnet_tpu_torch.config import Config
@@ -49,20 +52,13 @@ from pdfnet_tpu_torch.data.h2o import H2ODataset
 from pdfnet_tpu_torch.train import trainer as port_trainer
 
 from test_h2o_dataset import h2o_tree  # noqa: F401  (fixture reuse)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(default_resolution=64, compute_dtype="float32", sample_num=256,
              sample_num_level1=128, sample_num_level2=128, knn_k=8,
              batch_size=1, eval_batch_size=2, dropout=0.0, num_epochs=1,
              num_devices=1, num_workers=1, freeze_bn_stats=True, lr=1e-7)
 REL = 2e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _recording(cls, name, log, keep=lambda out: out):
@@ -77,6 +73,21 @@ def _recording(cls, name, log, keep=lambda out: out):
     return run
 
 
+def jitted_create_train_state(cfg, model, rng, sample_batch):
+    """JAX's ``create_train_state`` (``step.py:46-60``) with ``model.init``
+    under ``jax.jit``: run eagerly, the init dispatches and compiles each of
+    its ~1,000 primitives on its own (~100 s of this test on the CPU)."""
+    p_rng, d_rng = jax.random.split(rng)
+    variables = jax.jit(lambda p, d, b: model.init(
+        {"params": p, "dropout": d}, b["input"], b["choose"], b["cloud"],
+        b["depth"], b["ind"], b["K_new"], b["valid"], train=False))(
+        p_rng, d_rng, sample_batch)
+    return TrainState(params=variables["params"],
+                      batch_stats=variables.get("batch_stats", {}),
+                      opt_state=make_optimizer(cfg).init(variables["params"]),
+                      step=jnp.zeros((), jnp.int32))
+
+
 @pytest.fixture(scope="module")
 def runs(h2o_tree, tmp_path_factory):
     mp = pytest.MonkeyPatch()
@@ -84,6 +95,8 @@ def runs(h2o_tree, tmp_path_factory):
     out = {}
     try:
         mp.setattr(jax_grouping, "_FUSED_INTERPRET", True)
+        mp.setattr(jax_trainer, "create_train_state",
+                   jitted_create_train_state)
         jlog = {n: [] for n in ("init_state", "run_epoch", "evaluate")}
         # the initial weights as host copies: the train step donates them
         host = lambda st: {"params": jax_tree_to_numpy(st.params),

@@ -31,6 +31,7 @@ from pdfnet_tpu.ops import pallas_trunk
 from pdfnet_tpu_torch import convert
 from pdfnet_tpu_torch.models.resnet import Bottleneck, ResNet
 from pdfnet_tpu_torch.ops import trunk
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL_F32 = dict(atol=2e-5, rtol=1e-5)
 TOL_BF16 = 1e-2

@@ -15,6 +15,7 @@ from pdfnet_tpu.utils import vis as jax_vis
 
 from pdfnet_tpu_torch.utils import vis
 from pdfnet_tpu_torch.utils.profiler import StepProfiler
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_vis_equals_jax(tmp_path):
