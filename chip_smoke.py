@@ -122,7 +122,35 @@ Phases, each of which fails the run:
    (8, 96, 96, 256) images with 64 boxes at 7x7 and 14x14, and ms a call;
    (e) the CLI with ``--arch csp_50``: ``--mode train`` 2 steps, the
    checkpoint restored bit for bit, ``--mode test`` failing with JAX's
-   NotImplementedError.  Each sub-phase prints its seconds.
+   NotImplementedError.  Each sub-phase prints its seconds;
+14. (run after phase 13; its CLI part inside phase 7, on that tree)
+   data-parallel training (``parallel/mesh.py``) on a one-rank NCCL group
+   (``maybe_initialize_distributed`` on a free local port): ``Trainer`` at
+   full width, bf16, batch 8, 3 steps on ``make_batch``'s batches, once
+   replicated and once with ``zero1_opt_sharding``, each counted (one
+   launch of ``knn_group_xyz`` and of ``group_feat`` a step, added to their
+   ``launches``) and held to the same 3 steps without a process group:
+   every step's loss terms and every parameter's move within (b)'s bounds
+   of ``tests/test_torch_parallel.py`` or 4x the gap between two runs
+   without a group (the card's own run-to-run spread: atomics), both
+   printed; samples/s, peak memory, the device's busy share and the time
+   of one gradient all-reduce; ``fit`` for 2 steps in the group (ZeRO-1,
+   its collective save); then ``cli.main --mode train --coordinator
+   127.0.0.1:<port> --num_processes 1 --process_id 0`` for 2 steps against
+   the same command without the flags: the checkpoints within the same
+   bounds.
+
+``python3 chip_smoke.py --ranks N`` (on N cards)
+runs instead, after the card line, the multi-process path across cards:
+``cli.main --mode train --synthetic`` in N processes joined by
+``--coordinator`` (one card each, NCCL), 3 float32 steps of the global
+batch 8 with frozen BatchNorm and no dropout, an evaluation and a
+checkpoint, against the
+same command in one process: every process exits 0, the others write
+nothing, the first step's loss within 1e-5, the merged scores within 1e-4
+and the checkpoint's first Adam moments, as one vector without the leaves
+whose gradients cancel, within 1e-2 of the one process's (the float32
+order of batch-2 ranks against batch 8).
 
 TF32 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``), so every float32 number is true
@@ -2479,6 +2507,353 @@ def csp_cli_phase(tree: str, work: str) -> None:
           f"bit; {time.perf_counter() - t0:.1f} s")
 
 
+# ---- phase 14 (run after phase 13): data-parallel training ------------------
+
+DIST_STEPS = 3
+DIST_LAUNCHES = {"knn_group_xyz": DIST_STEPS, "group_feat": DIST_STEPS}
+# (b)'s bounds of tests/test_torch_parallel.py: each loss term relative to
+# its one-process value, each first-step gradient relative to its leaf's
+# norm; each parameter's move over the 3 steps relative to its norm (on the
+# entries of well-defined sign), in place of the elementwise rule, which
+# bf16 and the card's atomic sums break between two runs without a group
+DIST_LOSS_RTOL = 1e-5
+DIST_GRAD_RTOL = 1e-4
+DIST_MOVE_RTOL = 1e-3
+DIST_SPREAD = 4.0       # x the gap between two runs without a group
+DIST_GAPS = []          # that gap (dist_gaps), for the CLI part
+DIST_WARMUP, DIST_ITERS = 2, 6
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_steps(cfg, batches, zero1: bool):
+    """``Trainer`` (the card) over ``batches``, one step each: every step's
+    stats on the host, the parameters before and after, the trainer."""
+    import torch
+    from pdfnet_tpu_torch.train.trainer import Trainer
+    trainer = Trainer(cfg.replace(zero1_opt_sharding=zero1))
+    trainer.init_state()
+    before = [p.detach().clone() for p in trainer.model.parameters()]
+    gen = torch.Generator(device=trainer.device)
+    stats, grads = [], None
+    for i, b in enumerate(batches):
+        gen.manual_seed(i)
+        s = trainer.train_step(trainer.state, b, 0, 1e-4, gen)
+        stats.append({k: float(v) for k, v in s.items()})
+        if grads is None:
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad.clone()
+                     for p in trainer.model.parameters()]
+    after = [p.detach().clone() for p in trainer.model.parameters()]
+    return [stats, before, after, grads, trainer]
+
+
+def dist_gaps(got, want):
+    """(the largest loss-term gap relative to the term, over the steps; the
+    first-step gradients' gap relative to their norm, all leaves as one
+    vector; likewise the parameters' moves over the steps, on the entries
+    whose first-step gradient exceeds 1e-3 of its leaf's largest: Adam
+    moves the others by the sign of float32 noise)."""
+    s_got, b_got, a_got, g_got = got[:4]
+    s_want, b_want, a_want, g_want = want[:4]
+    loss = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-8)
+               for g, w in zip(s_got, s_want) for k in w)
+    norm = lambda ts: math.sqrt(sum(float(t.float().norm()) ** 2 for t in ts))
+    grad = norm(gg - gw for gg, gw in zip(g_got, g_want)) / max(
+        norm(g_want), 1e-30)
+    held = [gw.abs() > 1e-3 * gw.abs().max() for gw in g_want]
+    moves_w = [(aw - bw)[h] for aw, bw, h in zip(a_want, b_want, held)]
+    moves_g = [(ag - bg)[h] for ag, bg, h in zip(a_got, b_got, held)]
+    move = norm(mg - mw for mg, mw in zip(moves_g, moves_w)) / max(
+        norm(moves_w), 1e-30)
+    return loss, grad, move
+
+
+def dist_phase(card, cfg, dev) -> dict:
+    """Phase 14: the data-parallel train step on a one-rank NCCL group
+    against the same steps without a group.  Returns the launches of its
+    counted runs."""
+    import torch
+    import torch.distributed as dist
+    import pdfnet_tpu_torch as port
+    from pdfnet_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    check(not mesh.is_distributed(), "a process group before phase 14")
+    host = [port.make_batch(cfg, BATCH, seed=s) for s in range(DIST_STEPS)]
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in h.items()}
+               for h in host]
+    ref = dist_steps(cfg, batches, False)[:4]
+    ref2 = dist_steps(cfg, batches, False)[:4]
+    spread = dist_gaps(ref2, ref)
+    del ref2
+    DIST_GAPS[:] = spread
+    print(f"dist: two runs without a group [bf16, batch {BATCH}, "
+          f"{DIST_STEPS} steps]: loss terms {spread[0]:.3e}, first "
+          f"gradients {spread[1]:.3e}, parameter moves {spread[2]:.3e} "
+          f"apart (the card's run-to-run spread)")
+    multi = mesh.maybe_initialize_distributed(
+        f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    check(not multi and mesh.is_distributed() and mesh.process_count() == 1
+          and dist.get_backend() == ("nccl" if dev.type == "cuda"
+                                     else "gloo"),
+          "dist: no one-rank NCCL group")
+    launches = {n: 0 for n in DIST_LAUNCHES}
+    try:
+        for zero1 in (False, True):
+            label = f"dist {'zero1' if zero1 else 'replicated'}"
+            reset_port_launches()
+            got = dist_steps(cfg, batches, zero1)
+            torch.cuda.synchronize()
+            for n, v in check_launches(f"{label} [{DIST_STEPS} steps]",
+                                       DIST_LAUNCHES).items():
+                if n in launches:
+                    launches[n] += v
+            trainer = got[4]
+            check(type(trainer.state.optimizer).__name__
+                  == ("Zero1Adam" if zero1 else "Adam"),
+                  f"{label}: optimizer {type(trainer.state.optimizer)}")
+            gaps = dist_gaps(got, ref)
+            bounds = [max(b, DIST_SPREAD * g) for b, g in zip(
+                (DIST_LOSS_RTOL, DIST_GRAD_RTOL, DIST_MOVE_RTOL), spread)]
+            print(f"{label} against no group [bf16, batch {BATCH}, "
+                  f"{DIST_STEPS} steps]: loss terms {gaps[0]:.3e} (bound "
+                  f"{bounds[0]:.3e}), first gradients {gaps[1]:.3e} (bound "
+                  f"{bounds[1]:.3e}), parameter moves {gaps[2]:.3e} (bound "
+                  f"{bounds[2]:.3e})")
+            check(all(g <= b for g, b in zip(gaps, bounds)),
+                  f"{label}: {gaps} beyond {bounds}")
+            run = lambda: trainer.train_step(trainer.state, batches[0], 0,
+                                             1e-4)
+            for _ in range(DIST_WARMUP):
+                run()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t1 = time.perf_counter()
+            for _ in range(DIST_ITERS):
+                run()
+            torch.cuda.synchronize()
+            rate = BATCH * DIST_ITERS / (time.perf_counter() - t1)
+            peak = torch.cuda.max_memory_allocated(dev)
+            print(f"{label} train step samples/s [bf16, batch {BATCH}]: "
+                  f"{rate:.2f}; peak memory allocated {peak / 2**30:.2f} GiB "
+                  f"({card})")
+            if not zero1:
+                params = list(trainer.model.parameters())
+                n = sum(p.numel() for p in params if p.grad is not None)
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                mesh.all_reduce_grads(params)
+                start.record()
+                for _ in range(10):
+                    mesh.all_reduce_grads(params)
+                end.record()
+                torch.cuda.synchronize()
+                ms = start.elapsed_time(end) / 10
+                print(f"dist gradient all-reduce [one rank, {n} float32 "
+                      f"gradients, {4 * n / 2**20:.1f} MiB]: {ms:.4f} ms "
+                      f"({card})")
+            busy = profile(run, f"dist_{'zero1' if zero1 else 'rep'}_train_"
+                           f"bf16_b{BATCH}", steps=3)
+            print(f"{label} train step device busy share [bf16, batch "
+                  f"{BATCH}, 3 profiled steps]: {busy:.3f} ({card})")
+            del trainer, got, run
+        dist_fit(cfg)
+    finally:
+        dist.destroy_process_group()
+    print(f"dist phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def dist_fit(cfg) -> None:
+    """``fit`` for 2 steps in the group with ZeRO-1 on the synthetic hands:
+    its collective save writes the one-process format."""
+    import shutil
+
+    import torch
+    from pdfnet_tpu_torch.data.synthetic import SyntheticHandDataset
+    from pdfnet_tpu_torch.train.trainer import fit
+
+    work = os.path.join(OUT_DIR, "dist_fit")
+    shutil.rmtree(work, ignore_errors=True)
+    c = cfg.replace(zero1_opt_sharding=True, num_epochs=1, batch_size=BATCH)
+    trainer = fit(c, SyntheticHandDataset(c, size=2 * BATCH), None,
+                  log_dir=os.path.join(work, "logs"),
+                  ckpt_dir=os.path.join(work, "ckpt"), eval_every=0,
+                  save_every=1, max_steps_per_epoch=2)
+    saved = torch.load(os.path.join(work, "ckpt", "model_0"),
+                       map_location="cpu", weights_only=True)
+    params = dict(trainer.model.named_parameters())
+    state = saved["opt_state"]["state"]
+    check(saved["step"] == 2 and sorted(saved["params"]) == sorted(params)
+          and all(torch.equal(saved["params"][n], p.detach().cpu())
+                  for n, p in params.items())
+          and all(state[i]["exp_avg"].shape == p.shape
+                  for i, p in enumerate(params.values()) if i in state),
+          "dist fit: the checkpoint is not the one-process format of the "
+          "trainer's state")
+    print("dist fit [ZeRO-1, 2 steps]: checkpoint in the one-process "
+          "format, parameters bit for bit, full-shape moments")
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def dist_cli_phase(tree: str, work: str, spread) -> None:
+    """``cli.main --mode train --coordinator 127.0.0.1:<port>
+    --num_processes 1 --process_id 0`` for 2 steps on phase 7's tree, then
+    the same command without the flags: the checkpoints' moves and first
+    moments within the bounds of phase 14."""
+    import torch
+    from pdfnet_tpu_torch.cli.main import main as cli_main
+    from pdfnet_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    ckpts = []
+    for flags in (["--coordinator", f"127.0.0.1:{free_port()}",
+                   "--num_processes", "1", "--process_id", "0"], []):
+        out = os.path.join(work, f"out_dist{len(ckpts)}")
+        reset_port_launches()
+        cli_main(["--mode", "train", "--num_epochs", "1", "--steps", "2",
+                  "--eval_every", "0", "--save_every", "1", "--cache_path",
+                  tree, "--pre_fix", tree, "--output_path", out,
+                  "--batch_size", str(BATCH)] + flags)
+        torch.cuda.synchronize()
+        check_launches(f"cli --mode train {' '.join(flags[:1])}",
+                       {"knn_group_xyz": 2, "group_feat": 2})
+        check(not mesh.is_distributed(), "cli: the group outlived main")
+        ckpts.append(torch.load(os.path.join(out, "ckpt", "default",
+                                             "model_0"),
+                                map_location="cpu", weights_only=True))
+    got, want = ckpts
+    check(got["step"] == want["step"] == 2
+          and sorted(got["params"]) == sorted(want["params"]),
+          "cli --coordinator: checkpoint structure differs")
+    # the first moments (two steps' gradients) as one vector, as dist_gaps
+    # holds the gradients
+    sq = lambda ts: sum(float(t.norm()) ** 2 for t in ts)
+    state_g, state_w = (c["opt_state"]["state"] for c in (got, want))
+    moments = math.sqrt(sq(state_g[i]["exp_avg"] - s["exp_avg"]
+                           for i, s in state_w.items())
+                        / max(sq(s["exp_avg"] for s in state_w.values()),
+                              1e-30))
+    bound = max(DIST_GRAD_RTOL, DIST_SPREAD * spread[1])
+    print(f"cli --coordinator (one rank) against no flags [bf16, batch "
+          f"{BATCH}, 2 steps]: first moments {moments:.3e} apart (bound "
+          f"{bound:.3e}); {time.perf_counter() - t0:.1f} s")
+    check(moments <= bound, f"cli --coordinator: moments {moments:.3e} "
+          f"apart, beyond {bound:.3e}")
+
+
+# no dropout: the loader stripes records by rank, so the global batch is
+# the ranks' stripes in rank order, another order of the same records than
+# one process's batch, and a dropout mask row would meet another sample
+RANKS_ARGS = ["--mode", "train", "--synthetic", "--batch_size", str(BATCH),
+              "--num_epochs", "1", "--steps", "3", "--eval_every", "1",
+              "--save_every", "1", "--compute_dtype", "float32",
+              "--freeze_bn_stats", "--dropout", "0", "--lr", "1e-7"]
+
+
+def run_cli_processes(argvs, timeout=900):
+    """``python -m pdfnet_tpu_torch.cli.main`` once for each argv, all
+    started together; their outputs, after every one has exited (each is
+    killed at ``timeout``).  TF32 is off in them as in this script
+    (``NVIDIA_TF32_OVERRIDE=0``): cuDNN's default would run the float32
+    convolutions in TF32, by other algorithms at batch 2 than at 8."""
+    env = dict(os.environ, PYTHONPATH=REPO, NVIDIA_TF32_OVERRIDE="0")
+    procs = [subprocess.Popen([sys.executable, "-m",
+                               "pdfnet_tpu_torch.cli.main", *argv],
+                              cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for argv in argvs]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for argv, p, out in zip(argvs, procs, outs):
+        check(p.returncode == 0, f"cli {' '.join(argv)} exited "
+              f"{p.returncode}:\n{out[-4000:]}")
+    return outs
+
+
+def ranks_phase(card, n: int, extra=()) -> None:
+    """``--ranks N``: the train CLI in N processes joined by
+    ``--coordinator`` (NCCL, one card each; gloo under ``--cpu`` in
+    ``extra``) against one process on the same global batches."""
+    import glob
+    import shutil
+
+    import numpy as np
+    import torch
+
+    work = os.path.join(OUT_DIR, f"ranks{n}")
+    shutil.rmtree(work, ignore_errors=True)
+    args = RANKS_ARGS + list(extra)
+    coord = f"127.0.0.1:{free_port()}"
+    t0 = time.perf_counter()
+    outs = run_cli_processes([
+        args + ["--output_path", os.path.join(work, f"rank{i}"),
+                "--coordinator", coord, "--num_processes", str(n),
+                "--process_id", str(i)] for i in range(n)])
+    wall = time.perf_counter() - t0
+    check(f"multi-host: process 0 of {n}" in outs[0],
+          f"ranks: rank 0 did not join a group of {n}:\n{outs[0][-2000:]}")
+    check(not any(os.path.exists(os.path.join(work, f"rank{i}"))
+                  for i in range(1, n)), "ranks: a rank other than 0 wrote")
+    t1 = time.perf_counter()
+    run_cli_processes([args + ["--output_path", os.path.join(work, "one")]])
+    print(f"ranks: {n} processes {wall:.1f} s, one process "
+          f"{time.perf_counter() - t1:.1f} s (3 steps, an eval, a save; "
+          f"process start-up included)")
+
+    def read(d):
+        logs = glob.glob(os.path.join(d, "logs", "**", "log.jsonl"),
+                         recursive=True)
+        vals = glob.glob(os.path.join(d, "logs", "**", "H2O-val.txt"),
+                         recursive=True)
+        check(len(logs) == len(vals) == 1, f"ranks: logs under {d}")
+        with open(logs[0]) as f:
+            loss = json.loads(f.readline())["loss"]
+        with open(vals[0]) as f:
+            scores = [float(line.split(": ")[1]) for line in f
+                      if ": " in line]
+        ckpt = torch.load(os.path.join(d, "ckpt", "default", "model_0"),
+                          map_location="cpu", weights_only=True)
+        return loss, scores, ckpt
+
+    (l_n, s_n, c_n), (l_1, s_1, c_1) = (read(os.path.join(work, d))
+                                        for d in ("rank0", "one"))
+    loss_gap = abs(l_n - l_1) / abs(l_1)
+    score_gap = float(np.max(np.abs(np.subtract(s_n, s_1))
+                             / np.maximum(np.abs(s_1), 1e-12)))
+    sq = lambda ts: sum(float(t.double().norm()) ** 2 for t in ts)
+    st_n, st_1 = c_n["opt_state"]["state"], c_1["opt_state"]["state"]
+    check(sorted(st_n) == sorted(st_1) and c_n["step"] == c_1["step"] == 3,
+          "ranks: checkpoints of different steps or moments")
+    names = list(c_1["params"])
+    gap = lambda keep: math.sqrt(
+        sq(st_n[i]["exp_avg"] - s["exp_avg"] for i, s in st_1.items()
+           if keep(names[i]))
+        / sq(s["exp_avg"] for i, s in st_1.items() if keep(names[i])))
+    # without the leaves whose gradients cancel (the attention key biases,
+    # the level-0 SFT of the raw clouds: tests/test_torch_parallel.py's
+    # CANCELLING), which float32 order alone moves by up to their norm
+    moments = gap(lambda n: not (n.endswith("wk.bias")
+                                 or "pointnet.sft0." in n))
+    print(f"ranks: {n} processes against one [float32, global batch "
+          f"{BATCH}, frozen BatchNorm, 3 steps]: first loss {loss_gap:.3e} "
+          f"(bound 1e-5), merged scores {score_gap:.3e} (1e-4), first "
+          f"moments {moments:.3e} (1e-2; {gap(lambda n: True):.3e} with "
+          f"the cancelling leaves) apart ({card})")
+    check(len(s_n) == len(s_1) == 8 and loss_gap <= 1e-5
+          and score_gap <= 1e-4 and moments <= 1e-2,
+          f"ranks: {n} processes differ from one")
+    shutil.rmtree(work, ignore_errors=True)
+
+
 # ---- phase 7: the train/eval CLI on an H2O-format tree ----------------------
 
 # the mini tree: H2O's frame size and intrinsics, records per split (10 test
@@ -2699,6 +3074,7 @@ def cli_phase(card, dev) -> None:
     normals_cli_phase(tree, work)
     options_cli_phase(tree, work)
     csp_cli_phase(tree, work)
+    dist_cli_phase(tree, work, DIST_GAPS)
     # keep the score files; the tree and the checkpoints (~300 MB each) go
     keep = os.path.join(OUT_DIR, "cli_scores")
     os.makedirs(keep, exist_ok=True)
@@ -3001,10 +3377,10 @@ def cli_serving_phases(card, dev) -> None:
     bench_phase(card)
 
 
-def profile(fn, label: str, steps: int = 5) -> None:
+def profile(fn, label: str, steps: int = 5) -> float:
     """Device time by kernel over a few steps of ``fn``: the table goes to
     chiprun_out/profile_{label}.txt, a summary line (device busy share, the
-    port's kernels' share) to stdout."""
+    port's kernels' share) to stdout.  Returns the busy share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -3048,6 +3424,7 @@ def profile(fn, label: str, steps: int = 5) -> None:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, f"profile_{label}.txt"), "w") as f:
         f.write(events.table(sort_by="self_cuda_time_total", row_limit=60))
+    return device / wall
 
 
 def main() -> int:
@@ -3055,6 +3432,9 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile the bf16 eval, train and serving "
                          "steps at batch 8 and 32")
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="instead: the train CLI in this many processes, "
+                         "one a card, against one process")
     args = ap.parse_args()
     try:
         import torch
@@ -3086,6 +3466,15 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
 
+    if args.ranks:
+        check(torch.cuda.device_count() >= args.ranks,
+              f"--ranks {args.ranks} needs as many cards")
+        ranks_phase(card, args.ranks)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     cfg, dev = Config(), torch.device("cuda")     # bf16, the default
     steps = kernel_phase(cfg, dev)
     launches = eval_phase(args, card, cfg, dev)
@@ -3098,6 +3487,8 @@ def main() -> int:
     normals_phase(card, cfg, dev)
     options_phase(card, cfg, dev)
     csp_phase(card, cfg, dev)
+    for n, v in dist_phase(card, cfg, dev).items():
+        launches[n] += v
     cli_phase(card, dev)
     cli_serving_phases(card, dev)
 

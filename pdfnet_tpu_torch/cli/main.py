@@ -9,14 +9,23 @@ Usage:
   python -m pdfnet_tpu_torch.cli.main --mode train --synthetic --steps 5
   python -m pdfnet_tpu_torch.cli.main --cpu ...   # on the CPU, not the card
 
-Runs on one CUDA device unless ``--cpu`` is given.  The flags are the JAX
-CLI's, generated from the port's ``Config``.  ``--arch csp_50|csp_18``
+  # N processes, one a device (rank i on cuda:{i % device_count}):
+  python -m pdfnet_tpu_torch.cli.main --mode train --coordinator H:P \
+      --num_processes N --process_id i ...
+  # or torch's environment rendezvous (MASTER_ADDR, MASTER_PORT,
+  # WORLD_SIZE, RANK), as torchrun sets it:
+  torchrun --nproc_per_node N -m pdfnet_tpu_torch.cli.main --mode train ...
+
+Runs on the card unless ``--cpu`` is given (then a process group uses
+gloo; on the card NCCL).  The flags are the JAX CLI's, generated from the
+port's ``Config``.  Several processes train one model on the global batch
+``--batch_size``, each on its stripe; ``--mode val|test`` stripes the split
+and merges the metrics; rank 0 writes the files.  ``--arch csp_50|csp_18``
 trains the CSP detector; ``--mode val|test`` with it fails, as in JAX, in
-``Trainer.evaluate`` (NotImplementedError).  Refused by name when the flags
-are parsed: ``--zero1_opt_sharding``, whose path the port lacks
-(``check_trainer_config``), the device limits of ``check_config``, the
-multi-process flags (``--coordinator``, ``--num_processes``,
-``--process_id``) and ``--no-depth``.  Writes
+``Trainer.evaluate`` (NotImplementedError), and ``--zero1_opt_sharding``
+with it raises JAX's ValueError.  Refused by name when the flags are
+parsed: the device limits of ``check_config``, an incomplete set of the
+multi-process flags, and ``--no-depth``.  Writes
 ``{output_path}/{dataset}-val.txt`` (val and test)
 and ``{output_path}/hand_poses.json`` (test), the train logs under
 ``{output_path}/logs`` and the checkpoints under
@@ -121,12 +130,12 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU instead of the CUDA device")
     ap.add_argument("--coordinator", default="",
-                    help="multi-process training: not in the port yet "
-                         "(refused when set)")
+                    help="multi-process run: host:port of rank 0's "
+                         "rendezvous (torch.distributed, tcp://)")
     ap.add_argument("--num_processes", type=int, default=0,
-                    help="multi-process training: not in the port yet")
+                    help="multi-process run: the number of processes")
     ap.add_argument("--process_id", type=int, default=-1,
-                    help="multi-process training: not in the port yet")
+                    help="multi-process run: this process's rank")
     ap.add_argument("--eval_every", type=int, default=5,
                     help="run eval every N epochs while training "
                          "(reference main.py:115)")
@@ -146,34 +155,72 @@ def config_from_args(args):
 
 
 def check_args(args) -> None:
-    """Refuse, by name, the CLI-only values the port has no path for."""
+    """Refuse, by name, the CLI-only values the port has no path for, and
+    multi-process flags that do not name one rank of a group."""
     if not args.depth:
         raise SystemExit(
             "--no-depth: the published PDFNet model is RGB-D; RGB-only "
             "records (FreiHAND) are handled per-dataset with zero-padded "
             "clouds instead of an RGB-only architecture")
-    multi = [f for f, is_set in (("--coordinator", args.coordinator != ""),
-                                 ("--num_processes", args.num_processes != 0),
-                                 ("--process_id", args.process_id != -1))
-             if is_set]
-    if multi:
-        raise NotImplementedError(
-            f"{', '.join(multi)}: the port trains in one process on one "
-            f"device (multi-process training is not in the port yet)")
+    if not args.coordinator:
+        given = [f for f, is_set in (("--num_processes",
+                                      args.num_processes != 0),
+                                     ("--process_id", args.process_id != -1))
+                 if is_set]
+        if given:
+            raise ValueError(f"{', '.join(given)} without --coordinator")
+    elif not 0 <= args.process_id < args.num_processes:
+        raise ValueError(
+            f"--coordinator needs --num_processes >= 1 and 0 <= --process_id "
+            f"< --num_processes (got {args.num_processes}, "
+            f"{args.process_id})")
 
 
 def main(argv=None):
+    """Parse ``argv``, join the process group the flags (or torch's
+    environment variables) name, and train or evaluate.  A group this call
+    creates is destroyed before it returns."""
     args = build_argparser().parse_args(argv)
     check_args(args)
     cfg = config_from_args(args)
 
     from pdfnet_tpu_torch.models.handnet import check_config
-    from pdfnet_tpu_torch.train.trainer import (Trainer, check_trainer_config,
-                                                fit)
+    from pdfnet_tpu_torch.train.trainer import check_trainer_config
     if not cfg.arch.startswith("csp"):
         check_config(cfg)
     check_trainer_config(cfg)
-    device = "cpu" if args.cpu else "cuda"
+
+    import torch.distributed as dist
+
+    from pdfnet_tpu_torch.parallel import mesh
+    created = not mesh.is_distributed()
+    # the process group (the torch.distributed.launch + NCCL init role,
+    # reference main.py:69-75)
+    if mesh.maybe_initialize_distributed(
+            coordinator=args.coordinator or None,
+            num_processes=args.num_processes or None,
+            process_id=args.process_id if args.process_id >= 0 else None,
+            device="cpu" if args.cpu else "cuda"):
+        print(f"multi-host: process {mesh.process_index()} of "
+              f"{mesh.process_count()}", flush=True)
+    try:
+        return _run(args, cfg)
+    finally:
+        if created and mesh.is_distributed():
+            dist.destroy_process_group()
+
+
+def _run(args, cfg):
+    import torch
+
+    from pdfnet_tpu_torch.parallel import mesh
+    from pdfnet_tpu_torch.train.trainer import Trainer, fit
+
+    P, pi = mesh.process_count(), mesh.process_index()
+    # one device a rank: cuda:{rank % device_count}
+    device = ("cpu" if args.cpu else
+              f"cuda:{pi % torch.cuda.device_count()}" if mesh.is_distributed()
+              else "cuda")
 
     if args.synthetic:
         from pdfnet_tpu_torch.data.synthetic import SyntheticHandDataset
@@ -203,11 +250,17 @@ def main(argv=None):
         trainer.load(cfg.load_model, resume_optimizer=False)
     # the H2O submission is exact at any eval batch: id/frame_num ride the
     # padded batched loader and pad rows are masked out (the reference
-    # forces bs=1 for it, base_trainer.py:486)
-    acc = trainer.evaluate(eval_data.batches(cfg.eval_batch_size, 0),
-                           vis_every=args.vis_every,
-                           vis_dir=os.path.join(cfg.output_path, "imgs"))
+    # forces bs=1 for it, base_trainer.py:486); striped over the ranks
+    # (1/N of the split each), the partial sums and submission rows merged,
+    # rank 0 writes the files
+    acc = trainer.evaluate(
+        eval_data.batches(cfg.eval_batch_size, 0, process_index=pi,
+                          process_count=P),
+        vis_every=args.vis_every if pi == 0 else 0,
+        vis_dir=os.path.join(cfg.output_path, "imgs"))
     acc.all_reduce()
+    if pi != 0:
+        return trainer
     block = acc.format_block(cfg.exp_id)
     print(block)
     os.makedirs(cfg.output_path, exist_ok=True)

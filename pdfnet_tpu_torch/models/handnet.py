@@ -192,9 +192,15 @@ def resolve_device(device) -> torch.device:
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator):
-    # flax's default kernel init: truncated normal, variance 1/fan_in
+    """flax's default kernel init: a normal truncated to two standard
+    deviations, variance 1/fan_in, drawn as ``jax.random.truncated_normal``
+    draws it (a uniform through the normal's inverse CDF): one pass, where
+    ``nn.init.trunc_normal_`` resamples until every draw falls inside."""
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=gen)
+    lo, hi = (1.0 + math.erf(-2.0 / math.sqrt(2.0))) / 2.0, \
+        (1.0 + math.erf(2.0 / math.sqrt(2.0))) / 2.0
+    w.uniform_(2.0 * lo - 1.0, 2.0 * hi - 1.0, generator=gen)
+    w.erfinv_().mul_(std * math.sqrt(2.0)).clamp_(-2.0 * std, 2.0 * std)
 
 
 @torch.no_grad()

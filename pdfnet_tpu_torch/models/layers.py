@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pdfnet_tpu_torch.ops.resize import resize_bilinear_align_corners
+from pdfnet_tpu_torch.parallel import mesh
 
 LN_EPS = 1e-6     # every LayerNorm of the JAX model (flax default)
 BN_EPS = 1e-5
@@ -46,7 +47,12 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
       biased variance included, where ``torch.nn.BatchNorm*`` would use the
       unbiased one (torch's ``momentum`` is 1 minus flax's);
     - ``frozen`` (``Config.freeze_bn_stats``): train-time normalization with
-      the running statistics, which stay as they are; weight and bias train.
+      the running statistics, which stay as they are; weight and bias train;
+    - inside a distributed train step (``parallel.mesh.global_batch``) the
+      batch statistics are the global batch's: the float32 sums and sums of
+      squares are added over the ranks (with their gradient), so every rank
+      normalizes and updates its running statistics as one process would
+      on the whole batch.
 
     The output is float32, or the input's dtype with ``keep_dtype`` (the
     ResNet's norms, whose flax dtype is the compute dtype).
@@ -69,8 +75,17 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
             mean, var = self.running_mean, self.running_var
         else:
             dims = [0, *range(2, x.dim())]
-            mean = xf.mean(dims)
-            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            ranks, _ = mesh.batch_stripe()
+            if ranks == 1:
+                mean = xf.mean(dims)
+                sq = (xf * xf).mean(dims)
+            else:
+                # equal stripes: the global count is the local one x ranks
+                n = ranks * (x.numel() // x.shape[1])
+                sums = mesh.batch_sum(torch.stack([xf.sum(dims),
+                                                   (xf * xf).sum(dims)]))
+                mean, sq = sums[0] / n, sums[1] / n
+            var = torch.clamp(sq - mean * mean, min=0.0)
             m = self.flax_momentum
             with torch.no_grad():
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -90,7 +105,12 @@ class Dropout(nn.Module):
     probability 1 - p and scaled by 1 / (1 - p), else zeroed; the identity
     at eval or p == 0.  The draws come from ``generator``, a
     ``torch.Generator`` on the input's device that ``HandNet.forward`` sets
-    for each call (the default generator when none is set)."""
+    for each call (the default generator when none is set).  Inside a
+    distributed train step (``parallel.mesh.global_batch``) every rank draws
+    the global batch's mask from the same generator and keeps its stripe's
+    rows: N ranks drop what one process would on the global batch, the
+    ranks' stripes in rank order (the loader's striping puts the same
+    records in another order than one process's batch)."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -101,7 +121,11 @@ class Dropout(nn.Module):
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        ranks, rank = mesh.batch_stripe()
+        b = x.shape[0]
+        u = torch.rand((ranks * b,) + tuple(x.shape[1:]),
+                       generator=self.generator,
+                       device=x.device)[rank * b:(rank + 1) * b]
         return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 

@@ -3,8 +3,10 @@
 ``draw_gaussian_native``.
 
 The port keeps its own copy of ``fastops.cpp`` and builds it with ``g++`` at
-first use into ``pdfnet_tpu_torch/_build/``, named by a hash of the source
-and the flags.  A failed build raises with the compiler's message: the numpy
+first use into ``pdfnet_tpu_torch/_build/``, named by a hash of the source,
+the flags and the host (``host_key``): ``-march=native`` code built on one
+CPU can abort with an illegal instruction on another, and the working tree
+moves between machines with ``_build/`` in it.  A failed build raises with the compiler's message: the numpy
 versions (``data.cloud.sample_hand_cloud``, ``data.targets.draw_gaussian``)
 are chosen explicitly by their callers, never in place of a failed build.
 """
@@ -14,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import subprocess
 import threading
 from typing import Tuple
@@ -29,8 +32,26 @@ _LOCK = threading.Lock()
 _LIB = None
 
 
+def host_key() -> str:
+    """This host as the build's key: the boot id, else the first line of
+    ``/proc/cpuinfo``, else the platform's processor or machine name (the
+    rule of ``pdfnet_tpu/utils/cache.py``).  A move to another machine
+    implies a reboot, so a library is reused only within the boot that
+    built it."""
+    for src in ("/proc/sys/kernel/random/boot_id", "/proc/cpuinfo"):
+        try:
+            with open(src) as f:
+                line = f.readline()
+        except OSError:
+            continue
+        if line:
+            return line
+    return platform.processor() or platform.machine()
+
+
 def library_path() -> str:
     digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    digest.update(host_key().encode())
     with open(_SRC, "rb") as f:
         digest.update(f.read())
     return os.path.join(BUILD_DIR, f"libfastops-{digest.hexdigest()[:16]}.so")

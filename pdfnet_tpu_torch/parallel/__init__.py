@@ -1,0 +1,10 @@
+"""Data parallelism over processes on ``torch.distributed`` (port of
+``pdfnet_tpu/parallel``)."""
+
+from pdfnet_tpu_torch.parallel.mesh import (  # noqa: F401
+    Zero1Adam,
+    gather_to_host,
+    maybe_initialize_distributed,
+    process_local_batch_size,
+    zero1_state_shardings,
+)

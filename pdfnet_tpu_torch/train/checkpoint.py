@@ -13,7 +13,10 @@ Mirrors the reference semantics (lib/utils/utils.py:37-119): a checkpoint
 Restore overlays the entries whose name and shape match and keeps the rest
 as initialised, with a line for each skipped entry, instead of failing; the
 optimizer state is restored when it matches the parameters, else kept.
-Tensors are saved from and restored to their exact bits.
+Tensors are saved from and restored to their exact bits.  The format does
+not depend on the number of processes: under ``zero1_opt_sharding`` the
+split Adam moments are gathered into it (``parallel.mesh.gather_to_host``)
+and each rank takes its slice back on restore.
 """
 
 from __future__ import annotations
@@ -23,18 +26,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from pdfnet_tpu_torch.parallel.mesh import STAT_BUFFERS as _STATS
+from pdfnet_tpu_torch.parallel.mesh import gather_to_host
 from pdfnet_tpu_torch.train.step import TrainState
-
-_STATS = ("running_mean", "running_var")
 
 
 def _params(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     return {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
-
-
-def _batch_stats(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    return {n: b.detach().cpu().clone() for n, b in model.named_buffers()
-            if n.endswith(_STATS)}
 
 
 def _epochs(ckpt_dir: str, prefix: str = "model_"):
@@ -51,31 +49,20 @@ def _write(path: str, payload: dict) -> None:
     os.replace(tmp, path)
 
 
-def save_checkpoint(ckpt_dir: str, state: TrainState, epoch: int,
+def save_checkpoint(ckpt_dir: str, state: TrainState | dict, epoch: int,
                     keep: int = 10) -> str:
+    """Write ``state`` (a train state, or its ``gather_to_host`` copy) as
+    ``{ckpt_dir}/model_{epoch}``; returns the path."""
     ckpt_dir = os.path.abspath(ckpt_dir)
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"model_{epoch}")
-    opt = state.optimizer.state_dict()
-    _write(path, {"params": _params(state.model),
-                  "batch_stats": _batch_stats(state.model),
-                  "opt_state": _to_cpu(opt), "step": int(state.step),
-                  "epoch": int(epoch)})
+    host = state if isinstance(state, dict) else gather_to_host(state)
+    _write(path, {**host, "epoch": int(epoch)})
     # retention: keep the ``keep`` newest model_<epoch> checkpoints
     if keep and keep > 0:
         for _, old in _epochs(ckpt_dir)[:-keep]:
             os.remove(os.path.join(ckpt_dir, old))
     return path
-
-
-def _to_cpu(tree):
-    if torch.is_tensor(tree):
-        return tree.detach().cpu().clone()
-    if isinstance(tree, dict):
-        return {k: _to_cpu(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_cpu(v) for v in tree)
-    return tree
 
 
 def _load(path: str) -> dict:
@@ -105,13 +92,13 @@ def _restore_variables(model: torch.nn.Module, loaded: dict) -> None:
                      if n.endswith(_STATS)}, loaded.get("batch_stats", {}))
 
 
-def _optimizer_matches(opt: torch.optim.Optimizer, saved: dict) -> bool:
+def _optimizer_matches(state: TrainState, saved: dict) -> bool:
     """The saved Adam state has the optimizer's groups and, for every
     parameter it holds moments of, moments of that parameter's shape."""
-    params = [p for g in opt.param_groups for p in g["params"]]
+    params = list(state.model.parameters())
     groups = saved.get("param_groups", [])
-    if [len(g["params"]) for g in groups] != [len(g["params"])
-                                              for g in opt.param_groups]:
+    if [len(g["params"]) for g in groups] != [
+            len(g["params"]) for g in state.optimizer.param_groups]:
         return False
     for i, st in saved.get("state", {}).items():
         if not 0 <= int(i) < len(params):
@@ -126,11 +113,12 @@ def load_checkpoint(path: str, state: TrainState,
                     resume_optimizer: bool = True) -> Tuple[TrainState, int]:
     """Restore into an existing state, in place; returns (state,
     start_epoch) as the JAX function does (the epoch the checkpoint was
-    saved after)."""
+    saved after).  Every rank of a process group reads the file; no
+    collective."""
     loaded = _load(path)
     _restore_variables(state.model, loaded)
     if resume_optimizer and "opt_state" in loaded:
-        if _optimizer_matches(state.optimizer, loaded["opt_state"]):
+        if _optimizer_matches(state, loaded["opt_state"]):
             state.optimizer.load_state_dict(loaded["opt_state"])
             state.step = int(loaded.get("step", state.step))
         else:

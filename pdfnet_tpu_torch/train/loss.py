@@ -24,6 +24,7 @@ from pdfnet_tpu_torch.models.handnet import resolve_device
 from pdfnet_tpu_torch.ops.gather import gather_pixels
 from pdfnet_tpu_torch.ops.geometry import perspective_project, uv_root_to_3d
 from pdfnet_tpu_torch.ops.heatmap import clamped_sigmoid
+from pdfnet_tpu_torch.parallel import mesh
 from pdfnet_tpu_torch.render.lighting import sh_illumination
 from pdfnet_tpu_torch.render.rasterizer import render_two_hands
 from pdfnet_tpu_torch.train.priors import hard_example_mining
@@ -77,7 +78,8 @@ def focal_loss(pred: torch.Tensor, gt: torch.Tensor,
 
     A sample without positives returns its raw negative term (per-sample
     guard, the default); ``batch_global_guard`` is the reference's rule,
-    which falls back only when the whole batch has no positive."""
+    which falls back only when the whole batch has no positive (the global
+    batch's, in a distributed train step)."""
     pos = (gt == 1.0).to(pred.dtype)
     neg = (gt < 1.0).to(pred.dtype)
     neg_w = (1.0 - gt) ** 4
@@ -87,7 +89,7 @@ def focal_loss(pred: torch.Tensor, gt: torch.Tensor,
     num_pos = pos.sum(dims)
     pos_s, neg_s = pos_l.sum(dims), neg_l.sum(dims)
     if batch_global_guard:
-        return torch.where(num_pos.sum() == 0, -neg_s,
+        return torch.where(mesh.batch_sum(num_pos.sum()) == 0, -neg_s,
                            -(pos_s + neg_s) / (num_pos + 1e-3))
     denom = torch.clamp(num_pos, min=1.0)
     return torch.where(num_pos == 0, -neg_s, -(pos_s + neg_s) / denom)
@@ -113,12 +115,15 @@ def mse_per_sample(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
 def reg_l1_loss(output_map: torch.Tensor, mask: torch.Tensor,
                 ind: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Masked L1 on features gathered at the center indices, normalized by
-    the masked element count (RegL1Loss).  output_map (B, H, W, C) or values
-    already at the centers (B, K, C); mask, ind (B, K); target (B, K, C)."""
+    the masked element count (RegL1Loss), both summed over the global batch
+    in a distributed train step.  output_map (B, H, W, C) or values already
+    at the centers (B, K, C); mask, ind (B, K); target (B, K, C)."""
     pred = output_map if output_map.dim() == 3 else gather_pixels(output_map,
                                                                   ind)
     m = mask[..., None].expand(pred.shape).to(pred.dtype)
-    return torch.abs(pred * m - target * m).sum() / (m.sum() + 1e-8)
+    num, count = mesh.batch_sum(torch.stack([
+        torch.abs(pred * m - target * m).sum(), m.sum()]))
+    return num / (count + 1e-8)
 
 
 def _unit(e: torch.Tensor) -> torch.Tensor:

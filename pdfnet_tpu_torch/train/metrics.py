@@ -82,17 +82,33 @@ class MetricAccumulator:
         return {k: v / c for k, v in self.sums.items()}
 
     def all_reduce(self) -> "MetricAccumulator":
-        """Merge per-process partial accumulators.  The port trains and
-        evaluates in one process so far: this is the identity there and
-        refuses a ``torch.distributed`` group of more than one process
-        (the merge of sums and submission rows comes with distributed
-        training).  Returns self."""
+        """Merge per-process partial accumulators across the ranks of the
+        process group.
+
+        With the eval split striped over ranks (loader ``process_index`` /
+        ``process_count``, the DistributedSampler role), each rank holds
+        the sums over its own records; this sums ``sums``/``count`` in
+        float64 in rank order and unions the per-action H2O submission rows
+        (stripes are disjoint, so a plain union is exact).  Collective:
+        every rank must call it.  The identity without a process group or
+        with one rank.  Returns self."""
         import torch.distributed as dist
-        if dist.is_available() and dist.is_initialized() \
-                and dist.get_world_size() > 1:
-            raise NotImplementedError(
-                "MetricAccumulator.all_reduce: more than one process (the "
-                "port's metrics merge runs in one process only)")
+        if not (dist.is_available() and dist.is_initialized()) \
+                or dist.get_world_size() == 1:
+            return self
+        # pickled Python floats and dicts: exact, whatever the backend
+        parts = [None] * dist.get_world_size()
+        dist.all_gather_object(parts, (
+            [self.sums[k] for k in self.KEYS] + [self.count],
+            self._action_lists))
+        total = np.array([p[0] for p in parts], np.float64).sum(axis=0)
+        self.sums = {k: float(total[i]) for i, k in enumerate(self.KEYS)}
+        self.count = float(total[len(self.KEYS)])
+        merged: Dict[int, Dict] = {}
+        for _, rows in parts:
+            for action, frames in rows.items():
+                merged.setdefault(int(action), {}).update(frames)
+        self._action_lists = merged
         return self
 
     # reference H2O-val.txt line names (base_trainer.py:420-429)

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from pdfnet_tpu_torch.assets import ASSET_DIR
+from pdfnet_tpu_torch.parallel import mesh
 
 _LIMITS: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
 
@@ -90,7 +91,9 @@ def psnr(img1: torch.Tensor, img2: torch.Tensor,
 def hard_example_mining(per_sample_loss: torch.Tensor,
                         keep_ratio: float = 0.7) -> torch.Tensor:
     """Mean over the ``max(int(B * keep_ratio), 1)`` largest per-sample
-    losses (base_trainer.py:140-142)."""
+    losses (base_trainer.py:140-142), of the global batch in a distributed
+    train step."""
+    per_sample_loss = mesh.batch_gather(per_sample_loss)
     B = per_sample_loss.shape[0]
     k = max(int(B * keep_ratio), 1)
     return torch.topk(per_sample_loss, k).values.mean()

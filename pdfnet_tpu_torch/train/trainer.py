@@ -2,16 +2,26 @@
 ``Trainer``, ``fit``).
 
 Reference: lib/trains/base_trainer.py:81-199 (run_epoch) + main.py:107-143
-(epoch loop, LR steps, periodic eval/checkpoint).  One device, the card
-unless the caller asks for the CPU (``device="cpu"``); one process.  A step
-is forward, loss, backward and the Adam update (``train.step``); the epoch's
+(epoch loop, LR steps, periodic eval/checkpoint).  One device a process,
+the card unless the caller asks for the CPU (``device="cpu"``).  A step is
+forward, loss, backward and the Adam update (``train.step``); the epoch's
 stats stay on the device between the logging steps.
+
+In a process group (``parallel.mesh.maybe_initialize_distributed``) each
+process is one rank of a data-parallel run, as the JAX trainer's
+processes are (``trainer.py:332-395``): ``fit`` gives each rank its stripe
+of every global batch, the train step makes the global batch's update
+(``train.step``; ``zero1_opt_sharding`` splits the Adam moments over the
+ranks), the evaluation is striped and merged
+(``MetricAccumulator.all_reduce``), and rank 0 alone logs and writes the
+score and checkpoint files.  ``save`` is collective; ``load`` reads the
+file on every rank.  A checkpoint's format does not depend on the number
+of ranks.
 
 ``arch="csp_*"`` trains the CSP detector (``models.csp``, ``csp_loss``), as
 the JAX trainer dispatches on it (``trainer.py:65-76``); it has no eval
-step, so ``evaluate`` raises and ``fit`` skips the evaluation.  Refused by
-name, as the port has no path for it yet: ``zero1_opt_sharding``
-(optimizer-state sharding over processes).  With ``photometric_loss`` or
+step, so ``evaluate`` raises and ``fit`` skips the evaluation, and, as in
+JAX, it refuses ``zero1_opt_sharding``.  With ``photometric_loss`` or
 ``image_summary`` the epoch writes an ``input | pred | gt`` render grid
 every ``image_summary_every`` steps (rendered on the trainer's device)
 through ``Logger.image``; the CSP detector writes none, as in JAX.
@@ -33,6 +43,7 @@ from pdfnet_tpu_torch.data.prefetch import prefetch
 from pdfnet_tpu_torch.models.csp import CSPNet, csp_from_config
 from pdfnet_tpu_torch.models.handnet import (HandNet, init_weights,
                                              resolve_device)
+from pdfnet_tpu_torch.parallel import mesh
 from pdfnet_tpu_torch.render.rasterizer import render_two_hands
 from pdfnet_tpu_torch.train import checkpoint as ckpt_lib
 from pdfnet_tpu_torch.train.loss import load_loss_consts
@@ -45,12 +56,13 @@ from pdfnet_tpu_torch.utils.profiler import StepProfiler
 
 
 def check_trainer_config(cfg: Config) -> None:
-    """Raise NotImplementedError naming each Config value of the trainer
-    whose JAX path the port does not have."""
-    if cfg.zero1_opt_sharding:
-        raise NotImplementedError(
-            "the port's trainer does not implement zero1_opt_sharding=True "
-            "(optimizer-state sharding over processes)")
+    """Raise the JAX trainer's ValueError for ``zero1_opt_sharding`` with
+    the CSP detector (``trainer.py:110-113``)."""
+    if cfg.arch.startswith("csp") and cfg.zero1_opt_sharding:
+        raise ValueError(
+            "zero1_opt_sharding is only wired for the flagship HandNet "
+            "trainer; the CSP alternate detector would silently "
+            "replicate — drop the flag or use the HandNet arch")
 
 
 class Logger:
@@ -88,7 +100,7 @@ class Logger:
 
 class Trainer:
     """The model, its loss constants, train and eval steps, and the train
-    state, on one device.  ``arch="csp_*"`` builds the CSP detector with
+    state, on one device (one rank's, in a process group).  ``arch="csp_*"`` builds the CSP detector with
     its MANO constants and train step, and no eval step.  As in JAX, the
     weights are drawn by ``init_state``: until then a model the trainer
     builds holds torch's default initialization."""
@@ -288,13 +300,20 @@ class Trainer:
                     os.path.join(vis_dir, f"gt_hands_{side}{file_id}.obj"),
                     gt[hand], faces[side])
 
-    def save(self, ckpt_dir: str, epoch: int) -> str:
-        """Checkpoint the state; returns its path."""
-        return ckpt_lib.save_checkpoint(ckpt_dir, self.state, epoch)
+    def save(self, ckpt_dir: str, epoch: int) -> Optional[str]:
+        """Checkpoint the state; returns the path on rank 0, None
+        elsewhere.  COLLECTIVE under ``zero1_opt_sharding`` in a process
+        group (the split moments are gathered first), so every rank must
+        call it, as ``fit`` does."""
+        host = mesh.gather_to_host(self.state)
+        if mesh.process_index() != 0:
+            return None
+        return ckpt_lib.save_checkpoint(ckpt_dir, host, epoch)
 
     def load(self, path: str, resume_optimizer: bool = True) -> int:
-        """Restore the state from a checkpoint; returns the epoch it was
-        saved after."""
+        """Restore the state from a checkpoint written by any number of
+        ranks; returns the epoch it was saved after.  Every rank calls it
+        and reads the file."""
         self.state, epoch = ckpt_lib.load_checkpoint(path, self.state,
                                                      resume_optimizer)
         return epoch
@@ -304,43 +323,62 @@ def fit(cfg: Config, train_data, eval_data=None, log_dir: str = "outputs/logs",
         ckpt_dir: str = "outputs/ckpt", eval_every: int = 5,
         save_every: int = 5, max_steps_per_epoch: Optional[int] = None,
         device="cuda") -> Trainer:
-    """Full training recipe (scripts/train.sh equivalent) on one device:
-    epochs of ``run_epoch`` over a prefetched loader, the step-decay LR,
-    an evaluation every ``eval_every`` epochs appended to
+    """Full training recipe (scripts/train.sh equivalent): epochs of
+    ``run_epoch`` over a prefetched loader, the step-decay LR, an
+    evaluation every ``eval_every`` epochs appended to
     ``{log_dir}/{dataset}-val.txt`` (none for the CSP detector), a
-    checkpoint every ``save_every``."""
+    checkpoint every ``save_every``.
+
+    In a process group (the reference's torch.distributed.launch and rank-0
+    gating, main.py:69-173) every rank calls it: each loads its stripe of
+    the global batch of ``cfg.batch_size`` (``process_local_batch_size``),
+    the evaluation is striped the same way and merged, and rank 0 alone
+    logs and writes files."""
+    P, pi = mesh.process_count(), mesh.process_index()
+    local_bs = mesh.process_local_batch_size(cfg.batch_size)
     trainer = Trainer(cfg, device=device)
-    logger = Logger(log_dir, cfg)
+    logger = Logger(log_dir, cfg) if pi == 0 else None
+    log = logger.write if logger else (lambda *_: None)
     trainer.init_state()
     start_epoch = cfg.start_epoch
     if cfg.load_model:
         # checkpoints record the epoch they were saved AFTER; resume at the
         # next one (reference main.py:107 range(start_epoch + 1, ...))
         start_epoch = trainer.load(cfg.load_model) + 1
-        logger.write(f"resumed from {cfg.load_model}; "
-                     f"continuing at epoch {start_epoch}")
+        log(f"resumed from {cfg.load_model}; "
+            f"continuing at epoch {start_epoch}")
     try:
         for epoch in range(start_epoch, cfg.num_epochs):
             t0 = time.time()
-            gen = train_data.batches(cfg.batch_size, epoch)
+            gen = train_data.batches(local_bs, epoch, process_index=pi,
+                                     process_count=P)
             if max_steps_per_epoch:
                 gen = itertools.islice(gen, max_steps_per_epoch)
             means = trainer.run_epoch(epoch, prefetch(gen, depth=2), logger)
-            logger.write(
-                f"epoch {epoch}: loss={means.get('loss', float('nan')):.3f} "
+            log(f"epoch {epoch}: loss={means.get('loss', float('nan')):.3f} "
                 f"({time.time() - t0:.1f}s, lr={lr_at_epoch(cfg, epoch):.2e})")
             if (eval_data is not None and trainer.eval_step is not None
                     and eval_every > 0 and (epoch + 1) % eval_every == 0):
-                acc = trainer.evaluate(
-                    eval_data.batches(cfg.eval_batch_size, 0))
+                # each rank scores records pi, pi+P, ...; the merge is the
+                # collective, every rank calls it
+                acc = trainer.evaluate(eval_data.batches(
+                    cfg.eval_batch_size, 0, process_index=pi,
+                    process_count=P))
                 acc.all_reduce()
-                block = acc.format_block(f"epoch {epoch}")
-                logger.write(block)
-                with open(os.path.join(log_dir, f"{cfg.dataset}-val.txt"),
-                          "a") as f:
-                    f.write(block)
+                if pi == 0:
+                    block = acc.format_block(f"epoch {epoch}")
+                    log(block)
+                    with open(os.path.join(log_dir,
+                                           f"{cfg.dataset}-val.txt"),
+                              "a") as f:
+                        f.write(block)
             if save_every > 0 and (epoch + 1) % save_every == 0:
-                logger.write(f"saved {trainer.save(ckpt_dir, epoch)}")
+                # every rank calls save (collective under zero1); rank 0
+                # writes and gets a path back
+                path = trainer.save(ckpt_dir, epoch)
+                if path:
+                    log(f"saved {path}")
     finally:
-        logger.close()
+        if logger:
+            logger.close()
     return trainer

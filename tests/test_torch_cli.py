@@ -77,11 +77,14 @@ def test_overrides_round_trip():
 
 
 @pytest.mark.parametrize("argv,name", [
-    (["--coordinator", "localhost:1234"], "--coordinator"),
-    (["--num_processes", "2"], "--num_processes"),
-    (["--process_id", "0"], "--process_id")])
-def test_multi_process_flags_are_refused(argv, name):
-    with pytest.raises(NotImplementedError, match=name):
+    (["--coordinator", "localhost:1234"], "--coordinator needs"),
+    (["--num_processes", "2"], "--num_processes without --coordinator"),
+    (["--process_id", "0"], "--process_id without --coordinator")])
+def test_multi_process_flags_must_name_one_rank(argv, name):
+    """The multi-process flags train (``tests/test_torch_parallel.py``);
+    a set that names no rank of a group is refused before anything
+    starts."""
+    with pytest.raises(ValueError, match=name):
         main(argv + ["--cpu", "--synthetic"])
 
 
@@ -93,7 +96,8 @@ def test_no_depth_is_refused():
 @pytest.mark.parametrize("argv,exc,name", [
     (["--mode", "test", "--arch", "csp_50", "--synthetic"],
      NotImplementedError, "mesh evaluation"),
-    (["--zero1_opt_sharding"], NotImplementedError, "zero1_opt_sharding="),
+    (["--zero1_opt_sharding", "--arch", "csp_18", "--synthetic"],
+     ValueError, "zero1_opt_sharding is only wired"),
     (["--knn_k", "600"], ValueError, "knn_k=600"),
     (["--sample_num", "4096", "--sample_num_level1", "4096", "--knn_k",
       "4096"], ValueError, "MAX_SMEM")])

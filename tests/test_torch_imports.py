@@ -1,11 +1,11 @@
 """Package hygiene of the PyTorch port: it imports nothing of JAX or of the
 JAX package, its ``Config`` mirrors ``pdfnet_tpu.config.Config``, every
-entry point refuses by name the values whose JAX path it lacks (the
-trainer's ``zero1_opt_sharding``, the CLI's multi-process flags) and the
-device limits that remain (the selection kernel's shared memory), and the
-values it has since taken (FPS, normals, ``knn_method="approx"``,
-``use_img_attn``, ``s2d_stem``, ``patch_heads``, ``image_summary``,
-``photometric_loss``, the CSP archs) build a model and run."""
+entry point refuses by name the device limits that remain (the selection
+kernel's shared memory), and the values it has since taken (FPS, normals,
+``knn_method="approx"``, ``use_img_attn``, ``s2d_stem``, ``patch_heads``,
+``image_summary``, ``photometric_loss``, the CSP archs, the trainer's
+``zero1_opt_sharding``, the CLI's multi-process flags) build a model and
+run."""
 
 import dataclasses
 import os
@@ -36,6 +36,7 @@ def test_every_module_imports_without_jax():
     jax, flax, optax or pdfnet_tpu module."""
     mods = _modules()
     assert "pdfnet_tpu_torch.ops.sa" in mods and len(mods) >= 15
+    assert "pdfnet_tpu_torch.parallel.mesh" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -154,13 +155,21 @@ def test_build_model_takes_normals_and_fps(variant):
     assert pointnet.sft0.scale1.out_features == c
 
 
-@pytest.mark.parametrize("field,value", [("zero1_opt_sharding", True)])
-def test_trainer_refuses_what_the_port_lacks(field, value):
-    """Before it builds a model."""
+@pytest.mark.parametrize("arch", ["resnet50", "csp_18"])
+def test_trainer_takes_zero1_but_not_for_csp(arch):
+    """``zero1_opt_sharding``, once refused, builds the HandNet trainer
+    (its moments are split over the ranks of a process group; in one
+    process it replicates, as a one-device JAX mesh does); the CSP
+    detector raises JAX's ValueError (``trainer.py:110-113``) before it
+    builds a model."""
     from pdfnet_tpu_torch.train.trainer import Trainer
-    cfg = PortConfig().replace(**{field: value})
-    with pytest.raises(NotImplementedError, match=f"{field}="):
-        Trainer(cfg, device="cpu")
+    cfg = PortConfig(arch=arch, zero1_opt_sharding=True)
+    if arch.startswith("csp"):
+        with pytest.raises(ValueError, match="zero1_opt_sharding is only "
+                                             "wired for the flagship"):
+            Trainer(cfg, device="cpu")
+    else:
+        assert Trainer(cfg, device="cpu").train_step is not None
 
 
 @pytest.mark.parametrize("arch", ["csp_50", "csp_18"])
@@ -202,14 +211,20 @@ def test_trainer_writes_image_summaries(field, tmp_path):
     assert images == ["train_00000001.png", "train_00000003.png"]
 
 
-@pytest.mark.parametrize("flag,value", [("--coordinator", "localhost:1"),
-                                        ("--num_processes", "2"),
-                                        ("--process_id", "1")])
-def test_cli_refuses_multi_process_flags(flag, value):
+@pytest.mark.parametrize("argv", [
+    ["--coordinator", "localhost:1", "--num_processes", "2",
+     "--process_id", "1"],
+    ["--coordinator", "10.0.0.1:29500", "--num_processes", "4",
+     "--process_id", "0"],
+    ["--coordinator", "localhost:1", "--num_processes", "1",
+     "--process_id", "0"]])
+def test_cli_takes_multi_process_flags(argv):
+    """``check_args`` passes every flag set that names one rank of a
+    group (it once refused each flag)."""
     from pdfnet_tpu_torch.cli.main import build_argparser, check_args
-    args = build_argparser().parse_args([flag, value])
-    with pytest.raises(NotImplementedError, match=flag):
-        check_args(args)
+    args = build_argparser().parse_args(argv)
+    check_args(args)
+    assert 0 <= args.process_id < args.num_processes
 
 
 @pytest.mark.parametrize("kw,name", [

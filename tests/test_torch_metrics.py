@@ -75,9 +75,27 @@ def test_all_reduce_is_the_identity_in_one_process():
     assert acc.all_reduce() is acc and acc.result() == before
 
 
-def test_all_reduce_refuses_more_than_one_process(monkeypatch):
+def test_all_reduce_merges_the_ranks_rows(monkeypatch):
+    """With more than one rank (once refused) the merge sums the sums and
+    counts in rank order and unions the submission rows, as the JAX merge
+    does: here the ranks' partial accumulators are handed over by a
+    stand-in for the collective (``tests/test_torch_parallel.py`` runs the
+    real one over gloo)."""
     import torch.distributed as dist
+    stream = _fake_eval_stream(n=7)
+    parts = [_run(MetricAccumulator, stream[r::2]) for r in (0, 1)]
+
+    def all_gather_object(out, obj):
+        for r, acc in enumerate(parts):
+            out[r] = ([acc.sums[k] for k in acc.KEYS] + [acc.count],
+                      acc._action_lists)
+
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
-    with pytest.raises(NotImplementedError, match="more than one process"):
-        MetricAccumulator().all_reduce()
+    monkeypatch.setattr(dist, "all_gather_object", all_gather_object)
+    merged = parts[0].all_reduce()
+    one = _run(JaxAccumulator, stream)
+    assert merged.count == one.count == 7
+    for k, v in one.result().items():
+        assert merged.result()[k] == pytest.approx(v, rel=1e-12)
+    assert merged._action_lists == one._action_lists

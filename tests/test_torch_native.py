@@ -145,3 +145,17 @@ def test_build_writes_into_the_port_and_raises_on_failure(tmp_path,
     monkeypatch.setattr(native, "_LIB", None)
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         native.get_lib()
+
+
+def test_library_path_is_keyed_by_the_host(monkeypatch):
+    """A library built with ``-march=native`` is named by the host as well
+    as by the source and flags: another host key gives another file, the
+    same key the same file."""
+    here = native.library_path()
+    assert native.library_path() == here
+    monkeypatch.setattr(native, "host_key", lambda: "another host\n")
+    there = native.library_path()
+    assert there != here and native.library_path() == there
+    assert os.path.dirname(there) == native.BUILD_DIR
+    monkeypatch.setattr(native, "host_key", lambda: "a third host\n")
+    assert native.library_path() not in (here, there)

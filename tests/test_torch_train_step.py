@@ -33,6 +33,8 @@ and makes its update as ``make_train_step`` does (``jax.grad`` of
   semantics (with the port's own seeded weights: no JAX compile).
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -59,6 +61,7 @@ from pdfnet_tpu_torch.ops import sa
 from pdfnet_tpu_torch.ops.sa import knn_plain as sa_knn_plain
 
 from test_torch_eval_step import _random_like, jax_variables
+from test_torch_ranks import conv_act_bn_train, rank_group, train_steps  # noqa: F401
 from test_torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(default_resolution=64, compute_dtype="float32", sample_num=256,
@@ -87,11 +90,28 @@ def weights():
     return _port_state(), _batch()
 
 
+def _rejection_lecun_normal_(w, fan_in, gen):
+    """flax's lecun-normal kernel drawn by ``nn.init.trunc_normal_`` (in
+    this torch a rejection sampler), as ``init_weights`` drew it before it
+    took one pass: the kernels of this file's port-only tests stay the ones
+    they were written against."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    torch.nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                generator=gen)
+
+
 def _port_state(seed=1):
-    """The port's HandNet weights with flax's initializers, then, as
-    ``jax_variables`` draws them, every bias, norm gain and BatchNorm
-    statistic random, and hand-sized vertex offsets (see ``run_jax``)."""
-    model = port.build_model(port.Config(**SMALL), device="cpu")
+    """The port's HandNet weights with flax's initializers (drawn by
+    ``_rejection_lecun_normal_``), then, as ``jax_variables`` draws them,
+    every bias, norm gain and BatchNorm statistic random, and hand-sized
+    vertex offsets (see ``run_jax``)."""
+    from pdfnet_tpu_torch.models import handnet
+    saved = handnet._lecun_normal_
+    handnet._lecun_normal_ = _rejection_lecun_normal_
+    try:
+        model = port.build_model(port.Config(**SMALL), device="cpu")
+    finally:
+        handnet._lecun_normal_ = saved
     rng = np.random.RandomState(seed)
     norms = {n for n, m in model.named_modules()
              if isinstance(m, (BatchNorm, torch.nn.LayerNorm))}
@@ -258,11 +278,13 @@ def _assert_grads_close(got, want, names):
     return checked
 
 
-def test_train_step_matches_jax():
+def test_train_step_matches_jax(rank_group):
     """Frozen BN: every loss term of the first step, every gradient leaf,
-    and the loss of each of STEPS steps.  One test, so that one process
-    makes the JAX reference (one compile of the gradient)."""
+    and the loss of each of STEPS steps; and the first step on two ranks
+    (``two_rank_step``).  One test, so that one process makes the JAX
+    reference (one compile of the gradient)."""
     jr = run_jax()
+    two_rank_step(rank_group, jr)
     model, stats_t, grads_t, losses_t, state, _ = run_port(
         *jr[:2], selections=jr[5])
     assert sorted(stats_t) == sorted(jr[2])
@@ -275,6 +297,28 @@ def test_train_step_matches_jax():
     assert np.isfinite(losses_t).all() and losses_t[-1] < losses_t[0]
     np.testing.assert_allclose(losses_t, jr[4], **TRAJ_TOL)
     assert state.step == STEPS
+
+
+def two_rank_step(rank_group, jr):
+    """The first step on two gloo ranks, one sample each, held to the JAX
+    step ``jr`` (``run_jax``) on the global batch of 2 (rank 0's sample
+    first, as JAX assembles a global batch from process-local data):
+    every loss term within LOSS_TOL and every gradient leaf within
+    GRAD_RTOL.  Each rank replays its rows of the JAX step's selections,
+    as ``run_port`` does."""
+    cfg, model = _port_model(jr[0])
+    weights = {k: v.numpy() for k, v in model.state_dict().items()}
+    ranks = rank_group.run(train_steps, SMALL, weights, jr[1], 1, EPOCH, LR,
+                           jr[5][:2])
+    assert ranks[0]["digest"] == ranks[1]["digest"]
+    stats = ranks[0]["stats"][0]
+    assert sorted(stats) == sorted(jr[2])
+    for k in jr[2]:
+        np.testing.assert_allclose(stats[k], jr[2][k], err_msg=k, **LOSS_TOL)
+    grads_t = {n: torch.from_numpy(g) for n, g in ranks[0]["grads"].items()}
+    grads_j = convert.params_from_flax(jr[3], model)
+    assert _assert_grads_close(grads_t, grads_j, sorted(grads_t)) >= \
+        0.9 * len(grads_t)
 
 
 def test_frozen_bn_statistics_stay(weights):
@@ -337,6 +381,29 @@ def test_conv_act_bn_live_bn_matches_flax():
     np.testing.assert_allclose(y_t.transpose(0, 2, 3, 1), y_j, rtol=1e-4,
                                atol=1e-5)
     _assert_running_stats(bs_j, module)
+
+
+def test_conv_act_bn_live_bn_over_two_ranks_matches_flax(rank_group):
+    """Two gloo ranks, one sample each, in train mode: the global batch's
+    statistics (the ranks' float32 sums added), held to flax's
+    ``ConvActBN`` on the batch of 2 with ``_live_bn_pair``'s bounds."""
+    x = np.random.RandomState(2).randn(2, 12, 12, 16).astype(np.float32)
+    jm = JaxConvActBN(32, kernel=3)
+    shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), x, False))
+    rng = np.random.RandomState(3)
+    variables = {c: _random_like(shapes[c], rng)
+                 for c in ("params", "batch_stats")}
+    y_j, mutated = jm.apply(variables, x, True, mutable=["batch_stats"])
+    module = ConvActBN(16, 32, 3)
+    weights = {k: v.numpy()
+               for k, v in convert.from_flax(variables, module).items()}
+    ranks = rank_group.run(conv_act_bn_train, weights, x)
+    y_t = np.concatenate([r["y"] for r in ranks]).transpose(0, 2, 3, 1)
+    np.testing.assert_allclose(y_t, np.asarray(y_j), rtol=1e-4, atol=1e-5)
+    for r in ranks:
+        module.load_state_dict({**module.state_dict(), **{
+            k: torch.from_numpy(v) for k, v in r["buffers"].items()}})
+        _assert_running_stats(mutated["batch_stats"], module)
 
 
 def test_live_bn_uses_biased_variance_and_flax_momentum():
