@@ -138,7 +138,19 @@ Phases, each of which fails the run:
    its collective save); then ``cli.main --mode train --coordinator
    127.0.0.1:<port> --num_processes 1 --process_id 0`` for 2 steps against
    the same command without the flags: the checkpoints within the same
-   bounds.
+   bounds;
+15. (run after phase 14) the 2-D (data x model) layout on a one-rank NCCL
+   group: ``make_mesh_2d(1, 1)`` and ``shard_params_tp`` (every split leaf
+   a whole slice; the column-parallel and gather code runs with its NCCL
+   calls) under the train step (bf16, batch 8, 3 steps: one launch of
+   ``knn_group_xyz`` and of ``group_feat`` a step), the eval step
+   (``sa_group_l1`` 1, ``sa_group_l2`` 1, ``sa_mlp_max`` 2) and the serving
+   step (``knn`` 2, ``fused_bottleneck_s1`` 8 on gathered, folded
+   weights), each counted (added to ``launches``) and held to the same
+   runs without a group: bit for bit expected, else phase 14's bounds or
+   4x the gap between two runs without a group, both printed; samples/s
+   and frames/s beside the same steps without a group, peak memory, the
+   device's busy share and the NCCL calls a step.
 
 ``python3 chip_smoke.py --ranks N`` (on N cards)
 runs instead, after the card line, the multi-process path across cards:
@@ -150,7 +162,13 @@ same command in one process: every process exits 0, the others write
 nothing, the first step's loss within 1e-5, the merged scores within 1e-4
 and the checkpoint's first Adam moments, as one vector without the leaves
 whose gradients cancel, within 1e-2 of the one process's (the float32
-order of batch-2 ranks against batch 8).
+order of batch-2 ranks against batch 8).  With N = 4 it then runs the
+(2 data x 2 model) layout in 4 NCCL processes (``--tp_rank i``, one card
+each): 3 float32 train steps at lr 1e-7 with frozen BatchNorm and no
+dropout on the global batches of 8 and the eval step, against one
+process: the model peers bit for bit alike, the first step's loss terms
+and gradients within ``tests/test_torch_parallel.py``'s bounds, the eval
+outputs within 1e-4 of their scale.
 
 TF32 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32``), so every float32 number is true
@@ -2854,6 +2872,494 @@ def ranks_phase(card, n: int, extra=()) -> None:
     shutil.rmtree(work, ignore_errors=True)
 
 
+# ---- phase 15 (run after phase 14): the 2-D (data x model) layout -----------
+
+TP_STEPS = 3
+TP_TRAIN_LAUNCHES = {"knn_group_xyz": TP_STEPS, "group_feat": TP_STEPS}
+TP_EVAL_LAUNCHES = {"sa_group_l1": 1, "sa_group_l2": 1, "sa_mlp_max": 2}
+TP_SERVE_LAUNCHES = {"knn": 2, "fused_bottleneck_s1": 8}
+TP_WARMUP, TP_ITERS = 2, 6
+
+
+class CollectiveCount:
+    """Counts the process group's collectives (all_gather, all_reduce,
+    broadcast) while active: ``torch.distributed``'s functions wrapped."""
+
+    KINDS = ("all_gather", "all_reduce", "broadcast")
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.counts = {k: 0 for k in self.KINDS}
+        self.saved = {k: getattr(dist, k) for k in self.KINDS}
+        for k, fn in self.saved.items():
+            def counted(*a, _k=k, _fn=fn, **kw):
+                self.counts[_k] += 1
+                return _fn(*a, **kw)
+            setattr(dist, k, counted)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for k, fn in self.saved.items():
+            setattr(dist, k, fn)
+
+
+def hand_sized_(model) -> None:
+    """The vertex offsets' head scaled by 0.01 (tests/test_torch_ranks.py's
+    ``seeded_state``): at the initializers' scale the decoded hands lie
+    near the camera plane, where the 2-D terms amplify float32 noise."""
+    import torch
+    with torch.no_grad():
+        for p in model.decoder.coord_head.parameters():
+            p.mul_(0.01)
+
+
+def tp_model(cfg, dev, layout, seed_bn=None, state=None, hands=False):
+    """``build_model(cfg)`` (seeded; ``hand_sized_`` with ``hands``), its
+    BatchNorm statistics jittered with ``seed_bn`` or its weights
+    ``state``, split over ``layout`` when given."""
+    import pdfnet_tpu_torch as port
+    from pdfnet_tpu_torch.parallel import mesh
+    model = port.build_model(cfg, device=dev)
+    if hands:
+        hand_sized_(model)
+    if seed_bn is not None:
+        jitter_bn_(model, seed=seed_bn)
+    if state is not None:
+        model.load_state_dict(state)
+    if layout is not None:
+        mesh.shard_params_tp(model, layout)
+    return model
+
+
+def tp_train_steps(cfg, batches, dev, layout, lr=1e-4, hands=False):
+    """``TP_STEPS`` train steps at ``lr`` of the seeded model
+    (``hand_sized_`` with ``hands``; split over ``layout`` when given), one
+    a batch, dropout from a generator seeded by the step: [every step's
+    stats on the host, the parameters before and after and the first
+    step's gradients (whole, in the unsplit order), the state, the step,
+    the parameter names, the split plan]."""
+    import torch
+    import pdfnet_tpu_torch as port
+    from pdfnet_tpu_torch.parallel import mesh
+    model = port.build_model(cfg, device=dev)
+    if hands:
+        hand_sized_(model)
+    names = [n for n, _ in model.named_parameters()]
+    before = [p.detach().clone() for p in model.parameters()]
+    plan = {} if layout is None else mesh.shard_params_tp(model, layout)
+    state = port.create_train_state(cfg, model)
+    step = port.make_train_step(cfg, model, port.load_loss_consts(dev))
+    gen = torch.Generator(device=dev)
+
+    def whole(tensors):
+        out = {mesh.plain_name(n): mesh.unshard(model, n, t)
+               for n, t in tensors}
+        return [out[n] for n in names]
+
+    stats, grads = [], None
+    for i, b in enumerate(batches):
+        gen.manual_seed(i)
+        s = step(state, b, 0, lr, gen)
+        stats.append({k: float(v) for k, v in s.items()})
+        if grads is None:
+            grads = whole((n, torch.zeros_like(p) if p.grad is None
+                           else p.grad) for n, p in model.named_parameters())
+    after = [t.clone() for t in whole((n, p.detach())
+                                      for n, p in model.named_parameters())]
+    return [stats, before, after, grads, state, step, names, plan]
+
+
+def outputs_gap(got, want) -> float:
+    """The largest output gap relative to that output's largest entry."""
+    return max(float((got[k].float() - want[k].float()).abs().max())
+               / max(float(want[k].float().abs().max()), 1e-30)
+               for k in want)
+
+
+def tp_phase(card, cfg, dev) -> dict:
+    """Phase 15: the train, eval and serving steps with the model split by
+    ``shard_params_tp`` over ``make_mesh_2d(1, 1)`` on a one-rank NCCL
+    group (every split leaf a whole slice; the column-parallel and gather
+    code and its NCCL calls run), against the same steps without a group.
+    Returns the launches of its counted runs."""
+    import torch
+    import torch.distributed as dist
+    import pdfnet_tpu_torch as port
+    from pdfnet_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    check(not mesh.is_distributed(), "a process group before phase 15")
+    host = [port.make_batch(cfg, BATCH, seed=s) for s in range(TP_STEPS)]
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in h.items()}
+               for h in host]
+    res, n = cfg.default_resolution, cfg.sample_num
+    ebatch = {k: torch.from_numpy(v).to(dev)
+              for k, v in bench_batch(BATCH, res, n).items()}
+    scfg = cfg.replace(knn_method="pallas", fused_trunk=True)
+    consts = port.load_loss_consts(dev)
+
+    # the runs without a group (twice for the train step: the card's own
+    # run-to-run spread, phase 14's rule)
+    ref = tp_train_steps(cfg, batches, dev, None)
+    spread = dist_gaps(tp_train_steps(cfg, batches, dev, None)[:4], ref[:4])
+    print(f"tp: two train runs without a group [bf16, batch {BATCH}, "
+          f"{TP_STEPS} steps]: loss terms {spread[0]:.3e}, first gradients "
+          f"{spread[1]:.3e}, parameter moves {spread[2]:.3e} apart")
+    ref_rate = tp_rate(ref, batches[0])
+    emodel = tp_model(cfg, dev, None, seed_bn=1)
+    estep = port.make_eval_step(cfg, emodel, consts)
+    eref, eref2 = estep(ebatch), estep(ebatch)
+    e_rate = fps(estep, ebatch, BATCH)
+    smodel = tp_model(scfg, dev, None, seed_bn=3)
+    split_masks_(smodel, ebatch["input"])
+    sstate = smodel.state_dict()
+    # each serving run samples its clouds from a generator seeded alike
+    serve_once = lambda m: make_serve_step(   # noqa: E731
+        scfg, m, consts, torch.Generator(device=dev).manual_seed(0))(
+        ebatch)[0]
+    sref, sref2 = serve_once(smodel), serve_once(smodel)
+    sstep = make_serve_step(scfg, smodel, consts,
+                            torch.Generator(device=dev).manual_seed(0))
+    s_rate = fps(lambda b: sstep(b)[0], ebatch, BATCH)
+    ref[4:6] = [None, None]
+    del emodel, estep, smodel, sstep
+
+    multi = mesh.maybe_initialize_distributed(
+        f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    check(not multi and mesh.is_distributed()
+          and dist.get_backend() == ("nccl" if dev.type == "cuda"
+                                     else "gloo"),
+          "tp: no one-rank NCCL group")
+    launches = {}
+    try:
+        layout = mesh.make_mesh_2d(1, 1)
+        check((layout.data, layout.model) == (1, 1), f"tp: {layout}")
+
+        # the train step, counted
+        reset_port_launches()
+        got = tp_train_steps(cfg, batches, dev, layout)
+        torch.cuda.synchronize()
+        launches.update(check_launches(f"tp train [{TP_STEPS} steps]",
+                                       TP_TRAIN_LAUNCHES))
+        state = got[4]
+        plan = got[7]
+        full = dict(zip(got[6], (t.shape for t in got[1])))
+        stored = {mesh.plain_name(n): p.shape
+                  for n, p in state.model.named_parameters()}
+        check(len(plan) > 100 and len(mesh.shard_tensors(state.model))
+              == len(plan) and all(stored[n] == full[n] for n in plan),
+              "tp: the split leaves are not whole slices at model axis 1")
+        gaps = dist_gaps(got[:4], ref[:4])
+        bit = all(g == 0 for g in gaps)
+        bounds = [max(b, DIST_SPREAD * g) for b, g in zip(
+            (DIST_LOSS_RTOL, DIST_GRAD_RTOL, DIST_MOVE_RTOL), spread)]
+        print(f"tp train (1 x 1) against no group [bf16, batch {BATCH}, "
+              f"{TP_STEPS} steps]: loss terms {gaps[0]:.3e} (bound "
+              f"{bounds[0]:.3e}), first gradients {gaps[1]:.3e} (bound "
+              f"{bounds[1]:.3e}), parameter moves {gaps[2]:.3e} (bound "
+              f"{bounds[2]:.3e}){'; bit for bit' if bit else ''}")
+        check(all(g <= b for g, b in zip(gaps, bounds)),
+              f"tp train: {gaps} beyond {bounds}")
+        with CollectiveCount() as cc:
+            got[5](state, batches[0], 0, 1e-4)
+            torch.cuda.synchronize()
+        print(f"tp train step NCCL calls a step: {json.dumps(cc.counts)}")
+        rate, peak = tp_rate(got, batches[0])
+        busy = profile(lambda: got[5](state, batches[0], 0, 1e-4),
+                       f"tp_train_bf16_b{BATCH}", steps=3)
+        print(f"tp train step samples/s [bf16, batch {BATCH}]: {rate:.2f} "
+              f"(without a group {ref_rate[0]:.2f}); peak memory allocated "
+              f"{peak / 2**30:.2f} GiB (without {ref_rate[1] / 2**30:.2f}); "
+              f"busy {busy:.3f} ({card})")
+        del got, state, ref
+
+        # the eval step, counted
+        emodel = tp_model(cfg, dev, layout, seed_bn=1)
+        estep = port.make_eval_step(cfg, emodel, consts)
+        reset_port_launches()
+        eout = estep(ebatch)
+        torch.cuda.synchronize()
+        for k, v in check_launches("tp eval step", TP_EVAL_LAUNCHES).items():
+            launches[k] = launches.get(k, 0) + v
+        check_outputs("tp eval", eout, BATCH)
+        gap, own = outputs_gap(eout, eref), outputs_gap(eref2, eref)
+        bound = max(DIST_LOSS_RTOL, DIST_SPREAD * own)
+        print(f"tp eval (1 x 1) against no group [bf16, batch {BATCH}]: "
+              f"outputs {gap:.3e} of their scale apart (bound {bound:.3e}; "
+              f"two runs without a group {own:.3e})"
+              f"{'; bit for bit' if gap == 0 else ''}")
+        check(gap <= bound, f"tp eval: {gap:.3e} beyond {bound:.3e}")
+        with CollectiveCount() as cc:
+            estep(ebatch)
+            torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        rate = fps(estep, ebatch, BATCH)
+        peak = torch.cuda.max_memory_allocated(dev)
+        busy = profile(lambda: estep(ebatch), f"tp_eval_bf16_b{BATCH}",
+                       steps=3)
+        print(f"tp eval step frames/s [bf16, batch {BATCH}]: {rate:.2f} "
+              f"(without a group {e_rate:.2f}); peak {peak / 2**30:.2f} "
+              f"GiB; busy {busy:.3f}; NCCL calls a step "
+              f"{json.dumps(cc.counts)} ({card})")
+        del emodel, estep
+
+        # the serving step, counted
+        smodel = tp_model(scfg, dev, layout, state=sstate)
+        reset_port_launches()
+        sout = serve_once(smodel)
+        torch.cuda.synchronize()
+        for k, v in check_launches("tp serve step",
+                                   TP_SERVE_LAUNCHES).items():
+            launches[k] = launches.get(k, 0) + v
+        check_outputs("tp serve", sout, BATCH)
+        gap, own = outputs_gap(sout, sref), outputs_gap(sref2, sref)
+        bound = max(DIST_LOSS_RTOL, DIST_SPREAD * own)
+        print(f"tp serve (1 x 1) against no group [bf16, batch {BATCH}]: "
+              f"outputs {gap:.3e} of their scale apart (bound {bound:.3e}; "
+              f"two runs without a group {own:.3e})"
+              f"{'; bit for bit' if gap == 0 else ''}")
+        check(gap <= bound, f"tp serve: {gap:.3e} beyond {bound:.3e}")
+        sstep = make_serve_step(scfg, smodel, consts,
+                                torch.Generator(device=dev).manual_seed(0))
+        with CollectiveCount() as cc:
+            sstep(ebatch)
+            torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        rate = fps(lambda b: sstep(b)[0], ebatch, BATCH)
+        peak = torch.cuda.max_memory_allocated(dev)
+        busy = profile(lambda: sstep(ebatch), f"tp_serve_bf16_b{BATCH}",
+                       steps=3)
+        print(f"tp serve step frames/s [bf16, batch {BATCH}]: {rate:.2f} "
+              f"(without a group {s_rate:.2f}); peak {peak / 2**30:.2f} "
+              f"GiB; busy {busy:.3f}; NCCL calls a step "
+              f"{json.dumps(cc.counts)} ({card})")
+        del smodel, sstep
+    finally:
+        dist.destroy_process_group()
+    print(f"tp phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def tp_rate(run, batch):
+    """(samples/s of ``TP_ITERS`` steps after ``TP_WARMUP`` of the train
+    state and step in ``run``, the peak memory allocated meanwhile)."""
+    import torch
+    state, step = run[4], run[5]
+    for _ in range(TP_WARMUP):
+        step(state, batch, 0, 1e-4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(TP_ITERS):
+        step(state, batch, 0, 1e-4)
+    torch.cuda.synchronize()
+    return (BATCH * TP_ITERS / (time.perf_counter() - t0),
+            torch.cuda.max_memory_allocated())
+
+
+# ``--ranks 4``: the (2 data x 2 model) steps in 4 NCCL processes against one
+TP_RANKS_CFG = dict(compute_dtype="float32", freeze_bn_stats=True,
+                    dropout=0.0)
+# tests/test_torch_parallel.py's bounds for one step (assert_within_spread):
+# each first-step loss term 1e-5 relative, the first gradients as one
+# vector 1e-3 of its norm (GRAD_RTOL "handnet") and each leaf 5e-2
+# (MOMENT_RTOL; the cancelling leaves left out), or 4x the one process's
+# run-to-run gap; the later steps' loss terms within LOSS_TOL
+TP_RANKS_GRAD, TP_RANKS_LEAF = 1e-3, 5e-2
+# tests/test_torch_tp.py's EVAL_TOL, relative to each output's largest entry
+TP_RANKS_EVAL = 1e-4
+# as RANKS_ARGS: at 1e-4 Adam's first step turns float32 sign noise in
+# gradients near zero into 2 lr moves that the next steps' losses feel
+TP_RANKS_LR = 1e-7
+CANCELLING = ("wk.bias", "pointnet.sft0.")
+
+
+def tp_rank_main(rank: int, coordinator: str, out: str,
+                 device: str = "cuda") -> int:
+    """One rank of ``--ranks 4``'s 2-D run (``--tp_rank``): the (2 x 2)
+    layout over 4 NCCL processes, ``TP_STEPS`` float32 train steps of its
+    data stripe of the global batches of ``BATCH``, then the eval step on
+    its stripe; writes its results to ``out``."""
+    import torch
+    import torch.distributed as dist
+    import pdfnet_tpu_torch as port
+    from pdfnet_tpu_torch.parallel import mesh
+    mesh.maybe_initialize_distributed(coordinator, 4, rank, device=device)
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device == "cuda" else torch.device(device))
+    layout = mesh.make_mesh_2d(2, 2)
+    cfg = port.Config(**TP_RANKS_CFG)
+    rows = slice(layout.data_index * BATCH // 2,
+                 (layout.data_index + 1) * BATCH // 2)
+    batches = [{k: torch.from_numpy(v[rows]).to(dev) for k, v in
+                port.make_batch(cfg, BATCH, seed=s).items()}
+               for s in range(TP_STEPS)]
+    # the first step's replicated gradients as the rank computed them,
+    # before ``mesh.sync_model_peers`` averages them over the model group
+    pre, sync = [], mesh.sync_model_peers
+
+    def recording(model, lay, stats):
+        if not pre:
+            shards = {id(t) for t in mesh.shard_tensors(model)}
+            pre.append({n: p.grad.detach().cpu().clone()
+                        for n, p in model.named_parameters()
+                        if id(p) not in shards and p.grad is not None})
+        sync(model, lay, stats)
+
+    mesh.sync_model_peers = recording
+    try:
+        run = tp_train_steps(cfg, batches, dev, layout, TP_RANKS_LR, True)
+    finally:
+        mesh.sync_model_peers = sync
+    res, n = cfg.default_resolution, cfg.sample_num
+    ebatch = {k: torch.from_numpy(v[rows]).to(dev)
+              for k, v in bench_batch(BATCH, res, n).items()}
+    emodel = tp_model(cfg, dev, layout, seed_bn=1, hands=True)
+    eout = port.make_eval_step(cfg, emodel, port.load_loss_consts(dev))(
+        ebatch)
+    torch.save({"stats": run[0], "grads": [g.cpu() for g in run[3]],
+                "after": [a.cpu() for a in run[2]], "names": run[6],
+                "eval": {k: v.cpu() for k, v in eout.items()},
+                "pre_sync": pre[0], "data_index": layout.data_index}, out)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_tp_ranks(outs) -> None:
+    """``chip_smoke.py --tp_rank i`` for the 4 ranks, all started together
+    (TF32 off, as in this script), each writing ``outs[i]``."""
+    coord = f"127.0.0.1:{free_port()}"
+    env = dict(os.environ, PYTHONPATH=REPO, NVIDIA_TF32_OVERRIDE="0")
+    procs = [subprocess.Popen([sys.executable, os.path.join(REPO,
+                                                            "chip_smoke.py"),
+                               "--tp_rank", str(i), "--coordinator", coord,
+                               "--out", outs[i]], cwd=REPO, env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for i in range(len(outs))]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for i, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"tp rank {i} exited {p.returncode}:\n"
+              f"{log[-4000:]}")
+
+
+def rel(got: dict, want: dict) -> float:
+    """The largest gap of ``got``'s values to ``want``'s, relative to
+    each."""
+    return max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-12)
+               for k in want)
+
+
+def tp_ranks_phase(card, dev) -> None:
+    """``--ranks 4``: the (2 x 2) train and eval steps in 4 NCCL processes
+    (one card each) against one process on ``dev`` on the same global
+    batches."""
+    import shutil
+
+    import torch
+    import pdfnet_tpu_torch as port
+
+    work = os.path.join(OUT_DIR, "tp_ranks")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg = port.Config(**TP_RANKS_CFG)
+    t0 = time.perf_counter()
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                port.make_batch(cfg, BATCH, seed=s).items()}
+               for s in range(TP_STEPS)]
+    want = tp_train_steps(cfg, batches, dev, None, TP_RANKS_LR, True)
+    alt = tp_train_steps(cfg, batches, dev, None, TP_RANKS_LR, True)
+    res, n = cfg.default_resolution, cfg.sample_num
+    ebatch = {k: torch.from_numpy(v).to(dev)
+              for k, v in bench_batch(BATCH, res, n).items()}
+    emodel = tp_model(cfg, dev, None, seed_bn=1, hands=True)
+    eref = port.make_eval_step(cfg, emodel, port.load_loss_consts(dev))(
+        ebatch)
+    eref = {k: v.cpu() for k, v in eref.items()}
+    want[4:6] = alt[4:6] = [None, None]     # the states and steps
+    del emodel
+    one = time.perf_counter() - t0
+    outs = [os.path.join(work, f"rank{i}.pt") for i in range(4)]
+    t1 = time.perf_counter()
+    try:
+        run_tp_ranks(outs)
+        got = [torch.load(o, map_location="cpu", weights_only=True)
+               for o in outs]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"tp ranks: 4 processes {time.perf_counter() - t1:.1f} s, one "
+          f"process (two runs and the eval) {one:.1f} s")
+    names = got[0]["names"]
+    check(names == want[6], "tp ranks: the parameter order differs")
+    sq = lambda ts: sum(float(t.double().norm()) ** 2 for t in ts)
+    keep = [i for i, n in enumerate(names)
+            if not any(c in n for c in CANCELLING)]
+    w_g = [want[3][i].cpu() for i in keep]
+    vec = lambda gs: math.sqrt(sq(g - w for g, w in zip(gs, w_g))
+                               / max(sq(w_g), 1e-30))
+    g_vec = vec([got[0]["grads"][i] for i in keep])
+    a_vec = vec([alt[3][i].cpu() for i in keep])
+    # the model peers of each data rank: their loss terms (computed before
+    # their replicated gradients are averaged over the model group), their
+    # first replicated gradients before that average (apart only by the
+    # card's float32 atomics: within the one process's own run-to-run gap,
+    # the bound of phase 14), their parameters and gradients after it
+    pairs = ((got[0], got[1]), (got[2], got[3]))
+    peer_loss = max(rel(a["stats"][i], b["stats"][i]) for a, b in pairs
+                    for i in range(TP_STEPS))
+    rep = [n for n in got[0]["pre_sync"]
+           if not any(c in n for c in CANCELLING)]
+    pre_gap = max(math.sqrt(sq(a["pre_sync"][n] - b["pre_sync"][n]
+                               for n in rep)
+                            / max(sq(a["pre_sync"][n] for n in rep), 1e-30))
+                  for a, b in pairs)
+    pre_bound = max(DIST_GRAD_RTOL, DIST_SPREAD * a_vec)
+    peers = [max(float((x - y).abs().max()) for x, y in zip(a[k], b[k]))
+             for k in ("after", "grads") for a, b in pairs]
+    print(f"tp ranks: model peers' loss terms {peer_loss:.3e} apart (bound "
+          f"0), their first {len(rep)} replicated gradients before the "
+          f"model group's average {pre_gap:.3e} of their norm (bound "
+          f"{pre_bound:.3e}), their parameters and gradients after it "
+          f"{max(peers):.3e} (bound 0) ({card})")
+    check(peer_loss == 0 and pre_gap <= pre_bound and max(peers) == 0,
+          "tp ranks: model peers differ")
+    leaf = max(float((got[0]["grads"][i] - w).norm() / max(float(w.norm()),
+                                                            1e-30))
+               for i, w in zip(keep, w_g))
+    loss, a_loss = rel(got[0]["stats"][0], want[0][0]), rel(alt[0][0],
+                                                            want[0][0])
+    later = max(rel(g, w) for g, w in zip(got[0]["stats"][1:], want[0][1:]))
+    e_gap = 0.0
+    for r in (got[0], got[2]):
+        rows = slice(r["data_index"] * BATCH // 2,
+                     (r["data_index"] + 1) * BATCH // 2)
+        for k, v in eref.items():
+            w = v[rows] if v.dim() and v.shape[0] == BATCH else v
+            check(bool(torch.isfinite(r["eval"][k]).all()),
+                  f"tp ranks: eval {k} not finite")
+            e_gap = max(e_gap, float((r["eval"][k] - w).abs().max())
+                        / max(float(w.abs().max()), 1e-30))
+    bounds = (max(1e-5, DIST_SPREAD * a_loss),
+              max(TP_RANKS_GRAD, DIST_SPREAD * a_vec))
+    print(f"tp ranks: (2 x 2) in 4 processes against one [float32, global "
+          f"batch {BATCH}, frozen BatchNorm, {TP_STEPS} steps]: first loss "
+          f"terms {loss:.3e} (bound {bounds[0]:.3e}), later ones {later:.3e} "
+          f"(bound {LOSS_TOL}), first gradients {g_vec:.3e} "
+          f"(bound {bounds[1]:.3e}), worst leaf {leaf:.3e} (bound "
+          f"{TP_RANKS_LEAF}), eval outputs {e_gap:.3e} of their scale "
+          f"(bound {TP_RANKS_EVAL}); one "
+          f"process's own run-to-run gap: loss {a_loss:.3e}, gradients "
+          f"{a_vec:.3e} ({card})")
+    check(loss <= bounds[0] and later <= LOSS_TOL and g_vec <= bounds[1]
+          and leaf <= TP_RANKS_LEAF and e_gap <= TP_RANKS_EVAL,
+          "tp ranks: the (2 x 2) steps differ from one process")
+
+
 # ---- phase 7: the train/eval CLI on an H2O-format tree ----------------------
 
 # the mini tree: H2O's frame size and intrinsics, records per split (10 test
@@ -3434,7 +3940,12 @@ def main() -> int:
                          "steps at batch 8 and 32")
     ap.add_argument("--ranks", type=int, default=0,
                     help="instead: the train CLI in this many processes, "
-                         "one a card, against one process")
+                         "one a card, against one process (and with 4, "
+                         "the (2 x 2) layout's train and eval steps)")
+    ap.add_argument("--tp_rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--coordinator", help=argparse.SUPPRESS)
+    ap.add_argument("--out", help=argparse.SUPPRESS)
     args = ap.parse_args()
     try:
         import torch
@@ -3448,6 +3959,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.tp_rank is not None:
+        return tp_rank_main(args.tp_rank, args.coordinator, args.out)
     from pdfnet_tpu_torch import Config
     from pdfnet_tpu_torch.ops import cuda_build
 
@@ -3470,6 +3983,8 @@ def main() -> int:
         check(torch.cuda.device_count() >= args.ranks,
               f"--ranks {args.ranks} needs as many cards")
         ranks_phase(card, args.ranks)
+        if args.ranks == 4:
+            tp_ranks_phase(card, torch.device("cuda"))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -3488,6 +4003,8 @@ def main() -> int:
     options_phase(card, cfg, dev)
     csp_phase(card, cfg, dev)
     for n, v in dist_phase(card, cfg, dev).items():
+        launches[n] += v
+    for n, v in tp_phase(card, cfg, dev).items():
         launches[n] += v
     cli_phase(card, dev)
     cli_serving_phases(card, dev)

@@ -21,7 +21,9 @@ chosen by the type of the port module at that path, with the rules of
 Every flax leaf and every port parameter or running statistic must be used
 exactly once, or the call raises.  ``params_from_flax`` applies the same
 mapping to any tree shaped like the ``params`` collection (gradients, Adam
-moments), so such trees compare leaf by leaf with the port's.
+moments), so such trees compare leaf by leaf with the port's.  ``flax_last_dim``
+names the port dim that holds a flax leaf's last axis (the axis JAX's
+tensor-parallel placement splits).
 """
 
 from __future__ import annotations
@@ -50,6 +52,11 @@ def _linear(w):
 
 def _same(w):
     return w
+
+
+# the port dim that holds a flax leaf's last axis, by transform (``_same``:
+# the last dim)
+_LAST_DIM = {_conv: 0, _conv_t: 1, _linear: 0}
 
 
 _BN_LEAVES = {("params", "scale"): ("weight", _same),
@@ -92,6 +99,22 @@ def _leaf_rule(module: nn.Module, collection: str, leaf: str):
     if collection == "params" and leaf in module._parameters:
         return leaf, _same
     return None
+
+
+def flax_last_dim(model: nn.Module, name: str) -> int:
+    """The dim of the port parameter ``name`` that holds the last axis of
+    the flax leaf it stands for: the output channels of a Conv2d or Linear
+    kernel (dim 0), of a transposed one (dim 1), the last dim of any other
+    leaf (an ``Embedding``'s features, a bare parameter)."""
+    owner, _, leaf = name.rpartition(".")
+    module = model.get_submodule(owner)
+    last = model.get_parameter(name).dim() - 1
+    for cls, rule in _RULES:
+        if isinstance(module, cls):
+            for (collection, _), (port_leaf, tf) in rule.items():
+                if collection == "params" and port_leaf == leaf:
+                    return _LAST_DIM.get(tf, last)
+    return last
 
 
 def _convert(variables, model: nn.Module) -> Dict[str, torch.Tensor]:

@@ -40,7 +40,8 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
 
     - eval: the running statistics (``F.batch_norm``), in float32 unless
       ``keep_dtype``;
-    - train: the batch's float32 mean and its biased variance
+    - train: the batch's float32 (float64 for a float64 input: flax
+      promotes the input's dtype to float32) mean and its biased variance
       ``max(E[x^2] - E[x]^2, 0)`` (flax's fast variance), normalized as
       ``(x - mean) * (rsqrt(var + eps) * weight) + bias``; the running
       statistics move by ``momentum * old + (1 - momentum) * new``, the
@@ -70,18 +71,18 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
             return F.batch_norm(x if self.keep_dtype else x.float(),
                                 self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.frozen:
             mean, var = self.running_mean, self.running_var
         else:
             dims = [0, *range(2, x.dim())]
-            ranks, _ = mesh.batch_stripe()
-            if ranks == 1:
+            _, rows = mesh.batch_stripe(x.shape[0])
+            if rows == x.shape[0]:
                 mean = xf.mean(dims)
                 sq = (xf * xf).mean(dims)
             else:
-                # equal stripes: the global count is the local one x ranks
-                n = ranks * (x.numel() // x.shape[1])
+                # the global count: the batch's rows x each row's elements
+                n = rows * (x.numel() // (x.shape[0] * x.shape[1]))
                 sums = mesh.batch_sum(torch.stack([xf.sum(dims),
                                                    (xf * xf).sum(dims)]))
                 mean, sq = sums[0] / n, sums[1] / n
@@ -107,10 +108,12 @@ class Dropout(nn.Module):
     ``torch.Generator`` on the input's device that ``HandNet.forward`` sets
     for each call (the default generator when none is set).  Inside a
     distributed train step (``parallel.mesh.global_batch``) every rank draws
-    the global batch's mask from the same generator and keeps its stripe's
-    rows: N ranks drop what one process would on the global batch, the
-    ranks' stripes in rank order (the loader's striping puts the same
-    records in another order than one process's batch)."""
+    the global batch's mask from the same generator and keeps its rows
+    (``mesh.batch_stripe``): N ranks drop what one process would on the
+    global batch, the ranks' stripes in rank order (the loader's striping
+    puts the same records in another order than one process's batch).  The
+    model peers of a 2-D layout draw from equal generators, so their masks
+    agree."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -121,11 +124,11 @@ class Dropout(nn.Module):
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        ranks, rank = mesh.batch_stripe()
         b = x.shape[0]
-        u = torch.rand((ranks * b,) + tuple(x.shape[1:]),
+        first, rows = mesh.batch_stripe(b)
+        u = torch.rand((rows,) + tuple(x.shape[1:]),
                        generator=self.generator,
-                       device=x.device)[rank * b:(rank + 1) * b]
+                       device=x.device)[first:first + b]
         return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
@@ -184,12 +187,19 @@ class StridedUpConv(nn.Module):
         self.weight = nn.Parameter(torch.empty(cin, features, factor, factor))
         self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def project(self, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+        """The NHWC output without the bias, for ``weight`` (cin, F, f, f)
+        of any F (a slice of the output channels under tensor
+        parallelism, ``parallel/mesh.py``)."""
         f = self.factor
         B, cin, H, W = x.shape
-        w = self.weight.permute(0, 2, 3, 1).reshape(cin, f * f * self.features)
+        feats = weight.shape[1]
+        w = weight.permute(0, 2, 3, 1).reshape(cin, f * f * feats)
         y = x.permute(0, 2, 3, 1).reshape(B * H * W, cin) @ w.to(x.dtype)
-        y = depth_to_space(y.reshape(B, H, W, -1), f, self.features)
+        return depth_to_space(y.reshape(B, H, W, -1), f, feats)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.project(x, self.weight)
         return (y + self.bias.to(y.dtype)).permute(0, 3, 1, 2)
 
 

@@ -11,20 +11,26 @@ non-finite guard (``skip_nonfinite_updates``).  Nothing in a step reads a
 device value on the host: the stats it returns are device tensors.
 
 When a process group is initialized (``parallel.mesh``), a step is one
-rank's part of a data-parallel step over the global batch, the ranks'
-stripes in rank order: its forward runs inside ``mesh.global_batch`` (the
-BatchNorm statistics and the loss's non-mean reductions of the whole
-batch), the gradients and the stats are averaged over the ranks, and with
-``zero1_opt_sharding`` the Adam moments are split over them
-(``mesh.Zero1Adam``).  The result is one process's step on the global
-batch, as the JAX step under GSPMD.
+rank's part of a data-parallel step over the global batch, the data ranks'
+stripes in data order (every rank a data rank, or the data index of a 2-D
+layout, ``mesh.make_mesh_2d``): its forward runs inside
+``mesh.global_batch`` over the data group (the BatchNorm statistics and the
+loss's non-mean reductions of the whole batch), the gradients and the
+stats are averaged over the data group, and with ``zero1_opt_sharding``
+the Adam moments are split over the ranks (``mesh.Zero1Adam``).  Under a
+2-D layout the model split by ``mesh.shard_params_tp`` runs its own
+collectives over the model group, and the model peers' replicated
+gradients and statistics are averaged over it (``mesh.sync_model_peers``).
+The result is one process's step on
+the global batch, as the JAX step under GSPMD.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -68,24 +74,31 @@ def create_train_state(cfg: Config, model: HandNet | CSPNet) -> TrainState:
     CSP detector too (JAX ``create_csp_train_state``, ``step.py:213-224``).
 
     In a process group every rank takes rank 0's parameters and BatchNorm
-    statistics, and ``zero1_opt_sharding`` splits the moments over the
-    ranks (``mesh.Zero1Adam``); in one process it changes nothing, as a
-    one-device mesh replicates in JAX."""
+    statistics (the slices split by ``mesh.shard_params_tp`` were cut
+    from rank 0's whole tree there), and ``zero1_opt_sharding`` splits the
+    moments over the ranks (``mesh.Zero1Adam``; refused under a model axis
+    > 1, as JAX's ``zero1_state_shardings`` pins the parameters
+    replicated); in one process it changes nothing, as a one-device mesh
+    replicates in JAX."""
     device = next(model.parameters()).device
     kw = dict(lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
               capturable=device.type == "cuda")
+    layout = mesh.current_mesh()
+    if cfg.zero1_opt_sharding and layout.model > 1:
+        raise ValueError(
+            f"zero1_opt_sharding under a model axis of {layout.model}: the "
+            "ZeRO-1 placement keeps the parameters replicated, so it does "
+            "not compose with shard_params_tp (as in JAX)")
     if not mesh.is_distributed():
         return TrainState(model=model,
                           optimizer=torch.optim.Adam(model.parameters(), **kw))
-    mesh.broadcast_tensors(list(model.parameters()) + _stat_buffers(model))
+    shards = {id(t) for t in mesh.shard_tensors(model)}
+    mesh.broadcast_tensors([p for p in model.parameters()
+                            if id(p) not in shards]
+                           + mesh.stat_buffers(model))
     opt = (mesh.Zero1Adam(model, **kw) if cfg.zero1_opt_sharding
            else torch.optim.Adam(model.parameters(), **kw))
     return TrainState(model=model, optimizer=opt)
-
-
-def _stat_buffers(model: torch.nn.Module) -> List[torch.Tensor]:
-    return [b for n, b in model.named_buffers()
-            if n.endswith(mesh.STAT_BUFFERS)]
 
 
 # keys of a dataset batch that only the host reads (the metrics' padding
@@ -105,23 +118,6 @@ def _to_device(batch: Batch, device: torch.device,
     t = lambda v: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
     return {k: t(batch[k]).to(device, non_blocking=True) for k in keys
             if k in batch}
-
-
-def _slices(batch: Dict[str, torch.Tensor], n: int, what: str
-            ) -> List[Dict[str, torch.Tensor]]:
-    """``n`` equal slices of the batch axis of every per-sample entry."""
-    B = batch["input"].shape[0]
-    if B % n:
-        raise ValueError(f"batch {B} not divisible by {what}={n}")
-    c = B // n
-    cut = lambda v, i: v[i * c:(i + 1) * c] if v.dim() and v.shape[0] == B else v
-    return [{k: cut(v, i) for k, v in batch.items()} for i in range(n)]
-
-
-def _mean_stats(per: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
-    if len(per) == 1:
-        return per[0]
-    return {k: torch.stack([s[k] for s in per]).mean(0) for k in per[0]}
 
 
 def make_train_step(cfg: Config, model: HandNet, consts: LossConsts
@@ -145,26 +141,12 @@ def make_train_step(cfg: Config, model: HandNet, consts: LossConsts
         raise ValueError("grad_accum_steps and bn_stat_groups are mutually "
                          "exclusive (both re-slice the batch axis)")
     dp = mesh.is_distributed()
-    layout = _rank_layout(groups, accum) if dp else _Layout(
-        contextlib.nullcontext, groups, accum, False, None)
-    groups, accum = layout.groups, layout.accum
+    layout = mesh.current_mesh() if dp else None
+    cuts, what = ((accum, "grad_accum_steps") if accum > 1
+                  else (max(groups, 1), "bn_stat_groups"))
     device = next(model.parameters()).device
     norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
-
-    def norm_stats():
-        return [(m.running_mean.clone(), m.running_var.clone()) for m in norms]
-
-    def set_norm_stats(saved):
-        for m, (mean, var) in zip(norms, saved):
-            m.running_mean.copy_(mean)
-            m.running_var.copy_(var)
-
-    def forward_loss(b, epoch, generator):
-        result, params, hand_dicts, other = model(
-            b["input"], b["choose"], b["cloud"], ind=b["ind"],
-            generator=generator)
-        return compute_loss(cfg, consts, result, params, hand_dicts, other,
-                            b, epoch, mode="train")
+    plans: Dict[int, List[_Cut]] = {}
 
     def train_step(state: TrainState, batch: Batch, epoch: int, lr: float,
                    generator: Optional[torch.Generator] = None
@@ -173,20 +155,23 @@ def make_train_step(cfg: Config, model: HandNet, consts: LossConsts
             model.train()
         opt = state.optimizer
         b = _to_device(batch, device)
+        B = b["input"].shape[0] * (layout.data if dp else 1)
+        if B not in plans:
+            plans[B] = _rank_cuts(B, cuts, what, layout)
         opt.zero_grad(set_to_none=True)
         guard = cfg.skip_nonfinite_updates
-        norms_before = (norm_stats() if guard or groups > 1 or layout.chunks
-                        else None)
-        per = []
-        with layout.ctx():
-            _forward_backward(b, epoch, generator, norms_before, per)
-        stats = {k: v.detach() for k, v in _mean_stats(per).items()}
-        if dp:
-            mesh.all_reduce_grads(list(model.parameters()))
-            stats = mesh.all_reduce_stats(stats)
-            if layout.chunks:
-                _chain_running_stats(norms, norms_before, layout.chunks)
+        before = _norm_stats(norms) if guard or groups > 1 or accum > 1 \
+            else None
 
+        def loss_of(bc):
+            result, params, hand_dicts, other = model(
+                bc["input"], bc["choose"], bc["cloud"], ind=bc["ind"],
+                generator=generator)
+            return compute_loss(cfg, consts, result, params, hand_dicts,
+                                other, bc, epoch, mode="train")
+
+        stats = _run_cuts(model, plans[B], b, loss_of, groups > 1, before,
+                         layout)
         for g in opt.param_groups:
             g["lr"] = lr
         if not guard:
@@ -201,119 +186,170 @@ def make_train_step(cfg: Config, model: HandNet, consts: LossConsts
             else:
                 _guarded_update(opt, ok)
             with torch.no_grad():
-                for m, (mean, var) in zip(norms, norms_before):
+                for m, (mean, var) in zip(norms, before):
                     m.running_mean.copy_(torch.where(ok, m.running_mean, mean))
                     m.running_var.copy_(torch.where(ok, m.running_var, var))
             stats["skipped_nonfinite"] = (~ok).float()
-        if layout.keep_rank0:
-            # BatchNorm groups: group 0's statistics, which rank 0 holds
-            mesh.broadcast_tensors(_stat_buffers(model))
         state.step += 1
         return stats
-
-    def _forward_backward(b, epoch, generator, norms_before, per):
-        if groups > 1:
-            # Per-replica BatchNorm (DDP-of-G emulation, step.py:95-118):
-            # each group normalizes with its own slice and starts from the
-            # same running statistics; group 0's new statistics are kept.
-            for i, bg in enumerate(_slices(b, groups, "bn_stat_groups")):
-                if i:
-                    set_norm_stats(norms_before)
-                loss, stats = forward_loss(bg, epoch, generator)
-                (loss / groups).backward()
-                per.append(stats)
-                if i == 0:
-                    kept = norm_stats()
-            set_norm_stats(kept)
-        elif accum > 1:
-            # sequential chunks against fixed parameters, gradients summed
-            # then averaged (step.py:120-161); live BatchNorm statistics
-            # carry from one chunk to the next
-            for bc in _slices(b, accum, "grad_accum_steps"):
-                loss, stats = forward_loss(bc, epoch, generator)
-                loss.backward()
-                per.append(stats)
-            for p in model.parameters():
-                if p.grad is not None:
-                    p.grad.div_(accum)
-        else:
-            loss, stats = forward_loss(b, epoch, generator)
-            loss.backward()
-            per.append(stats)
 
     return train_step
 
 
-class _Layout(NamedTuple):
-    """How a rank of the process group takes its part of the global batch
-    (``_rank_layout``)."""
-
-    ctx: Callable                # the context of its forward and backward
-    groups: int                  # the BatchNorm groups it runs itself
-    accum: int                   # the accumulation chunks it runs itself
-    keep_rank0: bool             # rank 0's running statistics are kept
-    chunks: Optional[Tuple[int, int, int, int]]   # (A, first, own, ranks)
-
-
-def _rank_layout(groups: int, accum: int) -> _Layout:
-    """Under a process group, the global batch is the ranks' stripes in
-    rank order, cut in rank order into ``bn_stat_groups=G`` groups or
-    ``grad_accum_steps=A`` chunks.  A group or chunk inside one rank runs
-    there on its own (no collective); one that spans whole ranks runs on
-    each of them inside ``mesh.global_batch`` over those ranks (a group of
-    its own, every rank creating every group in one order); any other cut
-    raises.  Without either, the forward's batch is every rank's.  Kept
-    are group 0's running statistics (rank 0's); the chunks' statistics
-    follow one another, as JAX's scan carries them, which
-    ``_chain_running_stats`` rebuilds from each rank's own chain."""
-    world, rank = mesh.process_count(), mesh.process_index()
-    cuts, what = (accum, "grad_accum_steps") if accum > 1 else (
-        groups, "bn_stat_groups")
-    if cuts <= 1:
-        return _Layout(mesh.global_batch, groups, accum, False, None)
-    if cuts % world == 0:
-        own, span, first = cuts // world, 1, rank * (cuts // world)
-        ctx = contextlib.nullcontext
-    elif world % cuts == 0:
-        own, span = 1, world // cuts
-        first = rank // span
-        subgroups = [dist.new_group(list(range(g * span, (g + 1) * span)))
-                     for g in range(cuts)]
-        ctx = lambda: mesh.global_batch(subgroups[first])   # noqa: E731
-    else:
-        raise ValueError(
-            f"{what}={cuts} over {world} processes: a group must lie "
-            f"inside one process or span whole processes")
-    if accum > 1:
-        return _Layout(ctx, groups, own, False, (accum, first, own, span))
-    return _Layout(ctx, own, accum, True, None)
+def _norm_stats(norms: List[BatchNorm]) -> List[tuple]:
+    return [(m.running_mean.clone(), m.running_var.clone()) for m in norms]
 
 
 @torch.no_grad()
-def _chain_running_stats(norms, before, chunks) -> None:
+def _set_norm_stats(norms: List[BatchNorm], saved: List[tuple]) -> None:
+    for m, (mean, var) in zip(norms, saved):
+        m.running_mean.copy_(mean)
+        m.running_var.copy_(var)
+
+
+def _run_cuts(model: torch.nn.Module, plan: List["_Cut"], b: Batch,
+             loss_of: Callable, groups: bool, before: Optional[List[tuple]],
+             layout: Optional[mesh.Layout]) -> Dict[str, torch.Tensor]:
+    """The forward and backward of a train step over the cuts of ``plan``
+    (``_rank_cuts``), before its update: each cut's rows of ``b`` (a dict
+    of tensors, rows along dim 0 of ``b["input"]``) through ``loss_of``
+    (-> loss, stats) in the cut's context, its loss divided by the cut's
+    scale (sequential chunks or groups against fixed parameters, their
+    gradients summed to the mean over the cuts, ``step.py:95-161``);
+    with ``groups`` each BatchNorm group starts from the running
+    statistics ``before`` the step (per-replica BatchNorm, the DDP-of-G
+    emulation) and group 0's are kept.  In a process group (``layout``;
+    None in one process) the gradients and the stats are then averaged
+    over the data group, the chunks' running statistics chained over it
+    (``_chain_running_stats``), the groups' taken from data rank 0 (group
+    0's), and under a 2-D layout the model peers' replicated gradients and
+    statistics made one replica (``mesh.sync_model_peers``).  ``before``
+    is needed with ``groups`` and with more than one chunk.  Returns the
+    stats, each cut's divided by its scale and summed."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    rows = b["input"].shape[0]
+    chain = (layout is not None and layout.data > 1 and not groups
+             and plan[0].of > 1)
+    per, moves = [], []
+    for i, cut in enumerate(plan):
+        bc = b if cut.rows == slice(0, rows) else {
+            k: v[cut.rows] if v.dim() and v.shape[0] == rows else v
+            for k, v in b.items()}
+        if groups and i:
+            _set_norm_stats(norms, before)
+        start = _norm_stats(norms) if chain else None
+        with cut.ctx():
+            loss, stats = loss_of(bc)
+            (loss / cut.scale).backward()
+        per.append(stats)
+        if chain:
+            moves.append((cut.index, cut.ranks, start, _norm_stats(norms)))
+        if groups and i == 0:
+            kept = _norm_stats(norms)
+    if groups:
+        _set_norm_stats(norms, kept)
+    stats = {k: sum(s[k].detach() / c.scale for s, c in zip(per, plan))
+             for k in per[0]}
+    if layout is None:
+        return stats
+    mesh.all_reduce_grads(list(model.parameters()), layout.data_group)
+    stats = mesh.all_reduce_stats(stats, layout.data_group)
+    if chain:
+        _chain_running_stats(norms, before, moves, plan[0].of,
+                             layout.data_group)
+    if groups and layout.data > 1:
+        mesh.broadcast_tensors(mesh.stat_buffers(model),
+                               layout.data_ranks[0], layout.data_group)
+    if layout.model > 1:
+        mesh.sync_model_peers(model, layout,
+                              any(not m.frozen for m in norms))
+    return stats
+
+
+class _Cut(NamedTuple):
+    """One BatchNorm group or accumulation chunk of the global batch, as a
+    rank runs it (``_rank_cuts``)."""
+
+    index: int          # c, the cut's place in the global batch
+    rows: slice         # this rank's rows of it, in its stripe
+    ctx: Callable       # the context of its forward and backward
+    ranks: int          # the data ranks holding rows of it
+    scale: float        # R / rows: the divisor of this rank's loss of it
+    of: int             # the cuts of the global batch
+
+
+def _rank_cuts(B: int, cuts: int, what: str,
+               layout: Optional[mesh.Layout]) -> List[_Cut]:
+    """The cuts of the global batch of ``B`` rows (``bn_stat_groups=G``
+    groups or ``grad_accum_steps=A`` chunks, ``cuts`` of them) that this
+    rank runs, in ascending order.  Data rank d holds rows ``[d R, (d+1)
+    R)``, R = B / D over D data ranks (``layout``; None in one process);
+    cut c is rows ``[c S, (c+1) S)``, S = B / cuts.  Each rank runs every
+    cut that has rows on it, on its own rows of the cut.  A cut held by one
+    rank runs with no collective; one held by several runs inside
+    ``mesh.global_batch`` over a group of exactly those ranks (their row
+    counts given), every rank creating every such group in one order
+    (``dist.new_group``: for each cut, for each model index); the whole
+    batch (one cut) over the data group.  A rank's loss of a cut is divided
+    by R / its rows there, so that the gradients' average over the data
+    ranks is one process's mean over the cuts: ``sum_c grad L_c / cuts``,
+    a BatchNorm's sums and the loss's global reductions included (their
+    gradient reaches every holder through the collective)."""
+    if B % cuts:
+        raise ValueError(f"batch {B} not divisible by {what}={cuts}")
+    D = 1 if layout is None else layout.data
+    d = 0 if layout is None else layout.data_index
+    R, S = B // D, B // cuts
+    out = []
+    for c in range(cuts):
+        lo, hi = c * S, (c + 1) * S
+        holders = range(lo // R, (hi - 1) // R + 1)
+        counts = [min(hi, (h + 1) * R) - max(lo, h * R) for h in holders]
+        ctx = contextlib.nullcontext
+        if layout is not None and cuts == 1:
+            ctx = functools.partial(mesh.global_batch, layout.data_group,
+                                    counts)
+        elif len(holders) > 1:
+            for m in range(layout.model):
+                group = dist.new_group([layout.data_ranks_of(m)[h]
+                                        for h in holders])
+                if m == layout.model_index:
+                    ctx = functools.partial(mesh.global_batch, group, counts)
+        if d in holders:
+            first = max(lo, d * R) - d * R
+            n = counts[d - holders[0]]
+            out.append(_Cut(c, slice(first, first + n), ctx, len(holders),
+                            R / n, cuts))
+    return out
+
+
+@torch.no_grad()
+def _chain_running_stats(norms, r0, moves, A: int, group) -> None:
     """The running statistics after all A chunks of the global batch in
-    order, from each rank's chain over its own: chunks ``first ..
-    first + own - 1`` (``span`` ranks each running the same chunk) moved
-    a statistic from r0 to R, so the ranks' ``m**(A - first - own) *
-    (R - m**own * r0) / span`` add up to the global chain minus
-    ``m**A * r0`` (m the norm's flax momentum).  Frozen norms stay."""
-    A, first, own, span = chunks
-    live = [(m, b) for m, b in zip(norms, before) if not m.frozen]
-    parts = []
-    for m, (mean0, var0) in live:
-        mom = m.flax_momentum
-        w = mom ** (A - first - own) / span
-        parts += [(m.running_mean - mom ** own * mean0) * w,
-                  (m.running_var - mom ** own * var0) * w]
-    if not parts:
+    order, as JAX's scan carries them, from each rank's chunks: chunk c
+    moved a statistic from R_before to R_after = m R_before + (1 - m) x_c
+    (m the norm's flax momentum, x_c the chunk's global batch statistic),
+    so the ranks' ``sum_c m**(A - 1 - c) (R_after - m R_before) / n_c``
+    (n_c ranks hold chunk c) add up, over the data group, to the global
+    chain minus ``m**A r0``.  Frozen norms stay."""
+    live = [k for k, m in enumerate(norms) if not m.frozen]
+    if not live:
         return
+    parts = []
+    for k in live:
+        mom = norms[k].flax_momentum
+        for j in (0, 1):
+            parts.append(sum(mom ** (A - 1 - c) * (after[k][j]
+                                                   - mom * before[k][j]) / n
+                             for c, n, before, after in moves))
     flat = torch.cat(parts)
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     sums = flat.split([p.numel() for p in parts])
-    for k, (m, (mean0, var0)) in enumerate(live):
+    for i, k in enumerate(live):
+        m = norms[k]
         mom = m.flax_momentum ** A
-        m.running_mean.copy_(mom * mean0 + sums[2 * k])
-        m.running_var.copy_(mom * var0 + sums[2 * k + 1])
+        m.running_mean.copy_(mom * r0[k][0] + sums[2 * i])
+        m.running_var.copy_(mom * r0[k][1] + sums[2 * i + 1])
 
 
 @torch.no_grad()
@@ -348,7 +384,13 @@ def make_csp_train_step(cfg: Config, model: CSPNet, consts: ManoBranchConsts
     the global batch's step, as ``make_train_step``'s."""
     device = next(model.parameters()).device
     dp = mesh.is_distributed()
-    batch_ctx = mesh.global_batch if dp else contextlib.nullcontext
+    layout = mesh.current_mesh()
+    if layout.model > 1:
+        raise ValueError(
+            f"the CSP detector's train step under a model axis of "
+            f"{layout.model}: tensor parallelism is ported for HandNet only")
+    batch_ctx = (functools.partial(mesh.global_batch, layout.data_group)
+                 if dp else contextlib.nullcontext)
 
     def train_step(state: TrainState, batch: Batch, epoch: int, lr: float,
                    generator: Optional[torch.Generator] = None
@@ -365,8 +407,8 @@ def make_csp_train_step(cfg: Config, model: CSPNet, consts: ManoBranchConsts
             loss.backward()
         stats = {k: v.detach() for k, v in stats.items()}
         if dp:
-            mesh.all_reduce_grads(list(model.parameters()))
-            stats = mesh.all_reduce_stats(stats)
+            mesh.all_reduce_grads(list(model.parameters()), layout.data_group)
+            stats = mesh.all_reduce_stats(stats, layout.data_group)
         for g in opt.param_groups:
             g["lr"] = lr
         opt.step()

@@ -57,7 +57,14 @@ from pdfnet_tpu_torch.utils.profiler import StepProfiler
 
 def check_trainer_config(cfg: Config) -> None:
     """Raise the JAX trainer's ValueError for ``zero1_opt_sharding`` with
-    the CSP detector (``trainer.py:110-113``)."""
+    the CSP detector (``trainer.py:110-113``), and a ValueError under a
+    2-D layout with a model axis > 1 (``mesh.make_mesh_2d``): the trainer
+    runs data parallelism only, as JAX's has no 2-D path."""
+    model_axis = mesh.current_mesh().model
+    if model_axis > 1:
+        raise ValueError(
+            f"the trainer under a model axis of {model_axis}: it runs data "
+            "parallelism only (the 2-D layout is the train and eval steps')")
     if cfg.arch.startswith("csp") and cfg.zero1_opt_sharding:
         raise ValueError(
             "zero1_opt_sharding is only wired for the flagship HandNet "

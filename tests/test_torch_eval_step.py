@@ -31,6 +31,7 @@ import pdfnet_tpu_torch as port
 from pdfnet_tpu_torch import convert
 from pdfnet_tpu_torch.ops import sa
 from test_torch_threads import one_torch_thread  # noqa: F401
+from test_torch_threads import shared_across_workers
 
 SMALL = dict(default_resolution=64, compute_dtype="float32", sample_num=256,
              sample_num_level1=128, sample_num_level2=128, knn_k=8)
@@ -113,16 +114,19 @@ def run_slice():
     sa.reset_launches()
     got = port.make_eval_step(cfg_t, model,
                               port.load_loss_consts("cpu"))(batch)
-    return ref, {k: v.numpy() for k, v in got.items()}
+    return ref, {k: v.numpy() for k, v in got.items()}, dict(sa.launches)
 
 
 @pytest.fixture(scope="module")
-def slice_outputs():
-    return run_slice()
+def slice_outputs(tmp_path_factory):
+    """(JAX's outputs, the port's, the port's kernel launches), computed
+    once for the run's workers."""
+    return shared_across_workers(tmp_path_factory, "eval_step_slice",
+                                 run_slice)
 
 
 def test_eval_step_keys_and_shapes(slice_outputs):
-    ref, got = slice_outputs
+    ref, got, _ = slice_outputs
     assert sorted(got) == sorted(ref)
     for k in ref:
         assert got[k].shape == ref[k].shape, k
@@ -134,13 +138,15 @@ def test_eval_step_keys_and_shapes(slice_outputs):
     "verts_pred", "joints_pred", "verts_pred_off", "joints_pred_off",
     "lms21_pred", "verts_gt", "joints_gt", "verts_gt_off", "joints_gt_off"])
 def test_eval_step_matches_jax(slice_outputs, key):
-    ref, got = slice_outputs
+    ref, got, _ = slice_outputs
     np.testing.assert_allclose(got[key], ref[key], **TOL)
 
 
 def test_cpu_eval_launches_no_kernel(slice_outputs):
-    """On CPU tensors the wrappers run their plain versions only."""
-    assert all(v == 0 for v in sa.launches.values())
+    """On CPU tensors the wrappers run their plain versions only (the
+    counts as the eval step left them)."""
+    launches = slice_outputs[2]
+    assert launches and all(v == 0 for v in launches.values())
 
 
 def test_build_model_defaults_to_the_card():

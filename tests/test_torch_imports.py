@@ -148,7 +148,9 @@ def test_build_model_takes_normals_and_fps(variant):
             [np.zeros((1, 64 // s, 64 // s, w), np.float32)
              for s, w in ((1, 3), (2, 64), (4, 256))],
             np.zeros((1, 2, 256), np.int32), False)
-    variables = jmod.init(jax.random.PRNGKey(0), *args)
+    # one compile (an eager init compiles each primitive on its own)
+    variables = jax.jit(jmod.init, static_argnums=4)(jax.random.PRNGKey(0),
+                                                     *args)
     pointnet = model.encoder.pointnet
     pointnet.load_state_dict(convert.from_flax(variables, pointnet))
     assert pointnet.mlp1.fc0.in_features == c

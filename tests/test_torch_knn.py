@@ -179,8 +179,9 @@ def test_pointnet_plus_generic_matches_jax(method):
               ball_radius2=R2, input_feature_num=3, resolution=res)
     jmod = JaxPointNetPlus(knn_method=method, gather_method="take",
                            dtype=jnp.float32, **kw)
-    variables = jmod.init({"params": jax.random.PRNGKey(0)}, points, emb,
-                          choose, False)
+    # one compile (an eager init compiles each primitive on its own)
+    variables = jax.jit(jmod.init, static_argnums=4)(
+        {"params": jax.random.PRNGKey(0)}, points, emb, choose, False)
     jax_sets, port_sets = [], []
 
     def recording(fn, log):

@@ -17,6 +17,21 @@ against four: the mask decoder's term), so the HandNet cases that are not
 about BatchNorm run with frozen statistics; the BatchNorm groups, the
 accumulation chunks, the CSP detector (``feat_bn`` at momentum 0.99) and
 ``ConvActBN`` (``tests/test_torch_train_step.py``) train them live.
+
+A cut that splits a rank (``_rank_cuts``: three BatchNorm groups or
+accumulation chunks of a batch of 6 over two ranks) runs its middle cut
+at batch 1 on each rank against batch 2 in one process, and this batch
+amplifies that float32 order: with frozen statistics one process itself
+moves by 1.1e-4 of its gradient vector and 1.4e-2 of ``e_conv1``'s
+gradient (feeding the cancelling level-0 SFT) between one and two torch
+threads; the two ranks lie 2.0e-4 and 1.5e-2 from it (loss terms
+1.6e-7).  So the HandNet's split cuts run with frozen statistics and are
+held by ``assert_near_one_process`` (the gradients as one vector within
+``GRAD_RTOL["handnet"]``, each leaf within ``MOMENT_RTOL``), and live
+BatchNorm over split cuts is held in float64
+(``test_split_cuts_match_one_process_in_float64``), where no order
+amplifies: forward, gradients and the chained running statistics within
+``F64_RTOL``.
 """
 
 import contextlib
@@ -29,7 +44,8 @@ import torch
 import pdfnet_tpu_torch as port
 from pdfnet_tpu_torch.parallel import mesh
 
-from test_torch_ranks import (SMALL, checkpoint_round_trip, fit_run,
+from test_torch_ranks import (SMALL, checkpoint_round_trip,
+                              conv_act_bn_cuts, conv_act_bn_weights, fit_run,
                               hard_example_mining_grad, merged_metrics,
                               rank_group, train_steps)  # noqa: F401
 from test_torch_threads import one_torch_thread  # noqa: F401
@@ -47,8 +63,64 @@ GRAD_RTOL = {"handnet": 1e-3, "bn_stat_groups": 1e-4,
              "grad_accum_steps": 1e-4, "csp_18": 1e-4}
 
 
-def _batch(cfg_kw, seed=0):
-    return port.make_batch(port.Config(**cfg_kw), 2, seed=seed)
+# the float64 ConvActBN over split cuts against one process: the
+# outputs, gradients and running statistics (largest seen 1.9e-12 of a
+# gradient's norm), the loss within 1e-6 (``all_reduce_stats`` averages
+# the stats in float32: 3.4e-8 seen)
+F64_RTOL = 1e-10
+F64_LOSS_RTOL = 1e-6
+
+
+def _batch(cfg_kw, seed=0, size=2):
+    return port.make_batch(port.Config(**cfg_kw), size, seed=seed)
+
+
+def _vector_gap(a: dict, b: dict, names) -> float:
+    num = sum(float(np.sum((a[n] - b[n]) ** 2)) for n in names)
+    den = sum(float(np.sum(b[n] ** 2)) for n in names)
+    return (num / max(den, 1e-60)) ** 0.5
+
+
+def _leaf_gap(a, b) -> float:
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def assert_near_one_process(got, want, grad_rtol, lr=LR):
+    """A rank-0 result of ``train_steps`` against the one-process one
+    where the ranks change float32 orders that the model amplifies (a cut
+    that splits a rank, a split matmul): every loss term within 1e-5
+    relative, the gradients as one vector within ``grad_rtol`` of its
+    norm and each leaf within ``MOMENT_RTOL`` (``CANCELLING`` left out,
+    as ``chip_smoke.py`` phase 14 holds them), every running statistic
+    within ``BN_TOL``, and the update on the entries whose gradient stands
+    above 1e-3 of its leaf's largest and agrees within 1e-4 on both sides
+    (``_assert_checkpoints_match``'s rule)."""
+    for s_got, s_want in zip(got["stats"], want["stats"]):
+        assert sorted(s_got) == sorted(s_want)
+        for k, v in s_want.items():
+            gap = abs(s_got[k] - v) / max(abs(v), 1e-12)
+            assert gap <= LOSS_RTOL, f"{k}: {gap:.3e}"
+    names = [n for n in want["grads"] if not any(c in n for c in CANCELLING)]
+    gap = _vector_gap(got["grads"], want["grads"], names)
+    assert gap <= grad_rtol, f"gradients: {gap:.3e} of their norm"
+    for n in names:
+        gap = _leaf_gap(got["grads"][n], want["grads"][n])
+        assert gap <= MOMENT_RTOL, f"gradient of {n}: {gap:.3e}"
+    for n, b in want["buffers"].items():
+        np.testing.assert_allclose(got["buffers"][n], b, err_msg=n, **BN_TOL)
+    n_held = n_all = 0
+    for n, p in want["params"].items():
+        if any(c in n for c in CANCELLING):
+            continue
+        g, g_got = want["grads"][n], got["grads"][n]
+        held = ((np.abs(g) > ADAM_GRAD_FLOOR * np.abs(g).max())
+                & (np.abs(g_got - g) < 1e-4 * np.abs(g)))
+        move = np.abs(got["params"][n] - p)[held]
+        assert (move <= ADAM_RTOL * lr
+                + 2 * np.spacing(np.abs(p))[held]).all(), f"update of {n}"
+        n_held += int(held.sum())
+        n_all += p.size
+    assert n_held > n_all / 50, (n_held, n_all)
 
 
 def _assert_matches(got, want, grad_rtol, steps=1, lr=LR):
@@ -84,7 +156,8 @@ def _assert_matches(got, want, grad_rtol, steps=1, lr=LR):
 
 
 @pytest.mark.parametrize("case", ["quirks", "bn_stat_groups",
-                                  "grad_accum_steps", "csp_18"])
+                                  "grad_accum_steps", "csp_18",
+                                  "bn_stat_groups=3", "grad_accum_steps=3"])
 def test_two_ranks_match_one_process(case, rank_group):
     """One step on two ranks against one process on the same global batch
     of 2.  ``quirks``: ``replicate_reference_quirks`` (the focal loss's
@@ -94,7 +167,28 @@ def test_two_ranks_match_one_process(case, rank_group):
     BatchNorm groups, one a rank, live; ``grad_accum_steps``: two chunks,
     one a rank, live (the running statistics chained over both);
     ``csp_18``: the CSP detector's step, live, its focal guard always
-    global."""
+    global.  ``bn_stat_groups=3`` / ``grad_accum_steps=3``: a global batch
+    of 6, three rows a rank, cut in three, frozen statistics: the middle
+    cut splits both ranks (one row each, its loss's global reductions over
+    the two, each rank's loss of it divided by 3, of the others by 3/2),
+    held by ``assert_near_one_process`` (the module's docstring); the
+    gradient average over the ranks is one process's mean over the cuts
+    (JAX's chunk mean, which ``tests/test_torch_train_step.py`` holds the
+    one-process step to).  Live statistics over split cuts:
+    ``test_split_cuts_match_one_process_in_float64``."""
+    if "=" in case:
+        what = case.split("=")[0]
+        cfg = dict(SMALL, freeze_bn_stats=True, **{what: 3})
+        batch = _batch(cfg, size=6)
+        rank_group.start(train_steps, cfg, 1, batch)
+        try:
+            want = train_steps(cfg, 1, batch)
+        finally:
+            ranks = rank_group.wait()
+        assert ranks[0]["digest"] == ranks[1]["digest"]
+        assert ranks[0]["step"] == ranks[1]["step"] == 1
+        assert_near_one_process(ranks[0], want, GRAD_RTOL["handnet"])
+        return
     cfg = dict(SMALL)
     if case == "quirks":
         cfg.update(replicate_reference_quirks=True, freeze_bn_stats=True)
@@ -117,60 +211,115 @@ def test_two_ranks_match_one_process(case, rank_group):
                     GRAD_RTOL["handnet" if case == "quirks" else case])
 
 
-@pytest.mark.parametrize("world,rank,groups,accum,want", [
-    (2, 1, 4, 1, ("local", 2, None, None)),   # two groups inside each rank
-    (4, 3, 2, 1, ("ranks", 1, [2, 3], None)),  # a group spans two ranks
-    (4, 0, 4, 1, ("local", 1, None, None)),    # one group a rank
-    (4, 2, 1, 1, ("world", 1, None, None)),    # the global batch
-    (2, 1, 0, 4, ("local", 2, None, (4, 2, 2, 1))),   # chunks 2, 3 here
-    (4, 2, 0, 2, ("ranks", 1, [2, 3], (2, 1, 1, 2)))])  # chunk 1 on 2, 3
-def test_batch_cuts_map_onto_ranks(world, rank, groups, accum, want,
-                                   monkeypatch):
-    """How a rank takes its part of ``bn_stat_groups=G`` groups or
-    ``grad_accum_steps=A`` chunks of the global batch (``_rank_layout``):
-    the groups or chunks it runs on its own stripe, or the ranks it reduces
-    its BatchNorm sums and loss over (a group of its own, every rank
-    creating every group in one order), whether rank 0's statistics are
-    kept, and where its chunks stand in the chain of running statistics;
-    the process count is patched, no collective runs."""
+def assert_f64_cuts_match(ranks, want, peers=1):
+    """``conv_act_bn_cuts`` on the ranks against one process: the data
+    ranks' output rows (one rank of each ``peers`` model peers; the peers
+    equal) together the one process's, and every rank's stats, gradients
+    and running statistics (which moved) the one process's, within
+    ``F64_RTOL`` (the loss ``F64_LOSS_RTOL``)."""
+    for r in ranks:
+        assert r["stats"].keys() == want["stats"].keys()
+        gap = abs(r["stats"]["loss"] - want["stats"]["loss"])
+        assert gap <= F64_LOSS_RTOL * abs(want["stats"]["loss"]), gap
+        for n, g in want["grads"].items():
+            assert _leaf_gap(r["grads"][n], g) <= F64_RTOL, n
+        for n, b in want["buffers"].items():
+            assert np.abs(r["buffers"][n] - b).max() <= (
+                F64_RTOL * np.abs(b).max()), n
+    for i in range(0, len(ranks), peers):
+        for r in ranks[i + 1:i + peers]:
+            np.testing.assert_array_equal(r["y"], ranks[i]["y"])
+    y = np.concatenate([r["y"] for r in ranks[::peers]])
+    assert np.abs(y - want["y"]).max() <= F64_RTOL * np.abs(want["y"]).max()
+
+
+@pytest.mark.parametrize("what", ["bn_stat_groups", "grad_accum_steps"])
+def test_split_cuts_match_one_process_in_float64(what, rank_group):
+    """Live BatchNorm over cuts that split a rank, in float64, where no
+    summation order amplifies: a ``ConvActBN`` trained as the train step
+    runs its cuts (``_rank_cuts``, ``_run_cuts``; ``conv_act_bn_cuts``)
+    over three cuts of a batch of 6 on the two ranks, the middle one split
+    1 + 1 (its BatchNorm sums and their gradient over the two ranks; the
+    groups starting from the same statistics and keeping group 0's, the
+    chunks' statistics chained over cuts held by one rank and by two),
+    against one process running the three cuts in turn: the outputs, the
+    gradients and the running statistics within ``F64_RTOL``."""
+    x = np.random.RandomState(2).randn(6, 12, 12, 16)
+    weights = conv_act_bn_weights(32, 3)
+    ranks = rank_group.run(conv_act_bn_cuts, weights, x, what, 3)
+    want = conv_act_bn_cuts(weights, x, what, 3)
+    for n, b in want["buffers"].items():
+        assert np.abs(b - weights["bn." + n]).max() > 1e-2, n
+    assert_f64_cuts_match(ranks, want)
+
+
+@pytest.mark.parametrize("B,world,rank,cuts,want", [
+    (8, 2, 1, 4, [(2, slice(0, 2), None), (3, slice(2, 4), None)]),
+    (4, 4, 3, 2, [(1, slice(0, 1), [2, 3])]),     # a cut spans two ranks
+    (4, 4, 0, 4, [(0, slice(0, 1), None)]),       # one cut a rank
+    (4, 4, 2, 1, [(0, slice(0, 1), "data")]),     # the global batch
+    (6, 2, 0, 3, [(0, slice(0, 2), None), (1, slice(2, 3), [0, 1])]),
+    (6, 2, 1, 3, [(1, slice(0, 1), [0, 1]), (2, slice(1, 3), None)]),
+    (12, 3, 0, 2, [(0, slice(0, 4), [0, 1])]),    # uneven: 4 + 2 rows
+    (12, 3, 1, 2, [(0, slice(0, 2), [0, 1]), (1, slice(2, 4), [1, 2])]),
+    (12, 3, 2, 2, [(1, slice(0, 4), [1, 2])])])   # 2 + 4 rows
+def test_batch_cuts_map_onto_ranks(B, world, rank, cuts, want, monkeypatch):
+    """How a rank takes its part of ``cuts`` BatchNorm groups or
+    accumulation chunks of a global batch of ``B`` (``_rank_cuts``): the
+    cuts it runs in order, its rows of each, the ranks a cut's BatchNorm
+    sums and loss reduce over (a group of exactly those ranks, every rank
+    creating every such group in one order, with each member's rows) or
+    none, and the divisor of its loss (its rows of the whole stripe over
+    its rows of the cut); no collective runs."""
+    import functools
+
     import torch.distributed as dist
 
     from pdfnet_tpu_torch.train import step as step_lib
     made = []
-    monkeypatch.setattr(mesh, "process_count", lambda: world)
-    monkeypatch.setattr(mesh, "process_index", lambda: rank)
     monkeypatch.setattr(dist, "new_group", lambda ranks: made.append(ranks)
                         or tuple(ranks))
-    layout = step_lib._rank_layout(groups, accum)
-    kind, own, ranks, chunks = want
-    assert (layout.accum if accum > 1 else layout.groups) == own
-    assert layout.keep_rank0 == (groups > 1) and layout.chunks == chunks
-    if kind == "ranks":
-        cuts = max(groups, accum)
-        span = world // cuts
-        assert made == [list(range(g * span, (g + 1) * span))
-                        for g in range(cuts)]
-        entered = []
-        monkeypatch.setattr(mesh, "global_batch", lambda g=None: entered.append(
-            g) or contextlib.nullcontext())
-        with layout.ctx():
-            pass
-        assert entered == [tuple(ranks)]
-    else:
-        assert made == []
-        assert (layout.ctx is mesh.global_batch) == (kind == "world")
+    layout = mesh.Layout(world, 1, rank, 0, "data-group")
+    plan = step_lib._rank_cuts(B, cuts, "bn_stat_groups", layout)
+    R, S = B // world, B // cuts
+    spans = [list(range(c * S // R, ((c + 1) * S - 1) // R + 1))
+             for c in range(cuts)]
+    assert made == [r for r in spans if len(r) > 1] if cuts > 1 else made == []
+    assert [(c.index, c.rows) for c in plan] == [w[:2] for w in want]
+    for cut, (c, rows, ranks) in zip(plan, want):
+        n = rows.stop - rows.start
+        assert cut.scale == R / n and cut.ranks == len(spans[c])
+        if ranks is None:
+            assert cut.ctx is contextlib.nullcontext
+            continue
+        assert isinstance(cut.ctx, functools.partial)
+        assert cut.ctx.func is mesh.global_batch
+        group, counts = cut.ctx.args
+        assert group == ("data-group" if ranks == "data" else tuple(ranks))
+        lo, hi = c * S, (c + 1) * S
+        assert counts == [min(hi, (h + 1) * R) - max(lo, h * R)
+                          for h in spans[c]]
+        assert counts[spans[c].index(rank)] == n
 
 
-@pytest.mark.parametrize("groups,accum", [(3, 1), (0, 3)])
-def test_cuts_that_split_a_rank_raise(groups, accum, monkeypatch):
-    """Three groups or chunks over two ranks: one would span part of a
-    rank."""
+def test_cut_scales_give_the_mean_over_cuts(monkeypatch):
+    """Over every rank of each layout, the loss divisors weigh each cut as
+    one process's mean over the cuts does: a rank's rows of cut c over its
+    divisor, summed over the ranks, are ``world / cuts`` (the average over
+    the ranks then takes ``1 / world``: the mean's ``1 / cuts``)."""
+    import torch.distributed as dist
+
     from pdfnet_tpu_torch.train import step as step_lib
-    monkeypatch.setattr(mesh, "process_count", lambda: 2)
-    monkeypatch.setattr(mesh, "process_index", lambda: 0)
-    what = "bn_stat_groups" if groups > 1 else "grad_accum_steps"
-    with pytest.raises(ValueError, match=f"{what}=3 over 2 processes"):
-        step_lib._rank_layout(groups, accum)
+    monkeypatch.setattr(dist, "new_group", lambda ranks: None)
+    for B, world, cuts in ((8, 2, 4), (4, 4, 2), (6, 2, 3), (12, 3, 2),
+                           (6, 3, 2), (12, 4, 3)):
+        weight = [0.0] * cuts
+        for rank in range(world):
+            layout = mesh.Layout(world, 1, rank, 0)
+            for cut in step_lib._rank_cuts(B, cuts, "grad_accum_steps",
+                                           layout):
+                weight[cut.index] += 1.0 / cut.scale
+        assert weight == pytest.approx([world / cuts] * cuts), (B, world)
 
 
 def _jax_zero1_moment_shapes(cfg_kw, model, world):
@@ -301,7 +450,7 @@ def test_one_process_has_no_group(monkeypatch):
     assert mesh.maybe_initialize_distributed() is False
     assert not mesh.is_distributed()
     assert (mesh.process_index(), mesh.process_count()) == (0, 1)
-    assert mesh.batch_stripe() == (1, 0)
+    assert mesh.batch_stripe(3) == (0, 3)
     x = torch.arange(3.0)
     assert mesh.batch_sum(x) is x and mesh.batch_gather(x) is x
 

@@ -146,8 +146,11 @@ def stripe(batch: dict, rank: int, world: int) -> dict:
 
 
 def _where():
+    """(this rank's data index, the data ranks): its rank and the world
+    size, or its place on the data axis of a 2-D layout."""
     from pdfnet_tpu_torch.parallel import mesh
-    return mesh.process_index(), mesh.process_count()
+    layout = mesh.current_mesh()
+    return layout.data_index, layout.data
 
 
 def seeded_state(model: torch.nn.Module, seed: int = 1) -> dict:
@@ -178,10 +181,32 @@ def seeded_state(model: torch.nn.Module, seed: int = 1) -> dict:
     return state
 
 
-def build(cfg_kw: dict, weights=1):
-    """(cfg, model in train mode, train step, state) at ``cfg_kw`` with
-    ``weights`` (a seed for ``seeded_state`` or a state dict); the state
-    is ``create_train_state``'s, in a process group its data-parallel
+def load_weights(model: torch.nn.Module, weights) -> None:
+    """``weights``: a seed for ``seeded_state``, a state dict, or (a seed,
+    a dict of entries that replace its values)."""
+    if isinstance(weights, int):
+        weights = seeded_state(model, weights)
+    elif isinstance(weights, tuple):
+        seed, over = weights
+        weights = dict(seeded_state(model, seed), **over)
+    model.load_state_dict({k: torch.as_tensor(np.asarray(v))
+                           for k, v in weights.items()})
+
+
+def split_model(model: torch.nn.Module, mesh_2d) -> dict:
+    """``make_mesh_2d(*mesh_2d)`` and ``shard_params_tp`` of ``model`` on
+    it: the plan; {} without a 2-D mesh."""
+    from pdfnet_tpu_torch.parallel import mesh
+    if mesh_2d is None:
+        return {}
+    return mesh.shard_params_tp(model, mesh.make_mesh_2d(*mesh_2d))
+
+
+def build(cfg_kw: dict, weights=1, mesh_2d=None):
+    """(cfg, model in train mode, train step, state, the split plan) at
+    ``cfg_kw`` with ``weights`` (``load_weights``), split over a (data,
+    model) layout ``mesh_2d`` when given ({} otherwise); the state is
+    ``create_train_state``'s, in a process group its data-parallel
     one."""
     import pdfnet_tpu_torch as port
     from pdfnet_tpu_torch.models.csp import csp_from_config
@@ -190,22 +215,28 @@ def build(cfg_kw: dict, weights=1):
     cfg = port.Config(**cfg_kw)
     csp = cfg.arch.startswith("csp")
     model = csp_from_config(cfg) if csp else port.HandNet(cfg)
-    if isinstance(weights, int):
-        weights = seeded_state(model, weights)
-    model.load_state_dict({k: torch.as_tensor(np.asarray(v))
-                           for k, v in weights.items()})
+    load_weights(model, weights)
     model.train()
+    plan = split_model(model, mesh_2d)
     state = port.create_train_state(cfg, model)
     step = (make_csp_train_step(cfg, model, load_mano_branch_consts("cpu"))
             if csp else
             port.make_train_step(cfg, model, port.load_loss_consts("cpu")))
-    return cfg, model, step, state
+    return cfg, model, step, state, plan
 
 
 def _digest(model) -> str:
     h = hashlib.sha256()
     for p in model.parameters():
         h.update(p.detach().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _digest_tree(tree: dict) -> str:
+    h = hashlib.sha256()
+    for part in ("params", "batch_stats"):
+        for v in tree[part].values():
+            h.update(v.numpy().tobytes())
     return h.hexdigest()
 
 
@@ -277,41 +308,88 @@ def shared_selections(selections: list, B: int):
 
 
 def train_steps(cfg_kw: dict, weights, batch: dict, steps: int = 1,
-                epoch: int = 30, lr: float = 1e-4, selections=None) -> dict:
+                epoch: int = 30, lr: float = 1e-4, selections=None,
+                mesh_2d=None, seed=None) -> dict:
     """``steps`` train steps of the global ``batch`` (this rank's stripe of
-    it): every step's stats, the first step's gradients, then the
-    parameters and running statistics (rank 0's; the other ranks return
-    a digest of their parameters), the step count and the shape of every
-    Adam moment this rank holds."""
+    it, by data index), the model split over a (data, model) layout
+    ``mesh_2d`` when given, dropout drawn from a generator seeded ``seed +
+    step`` when ``seed`` is given: every step's stats, the first step's
+    gradients, then the parameters and running statistics (rank 0's; the
+    other ranks return a digest of their parameters, of the gathered ones
+    and the statistics under a 2-D layout), the step count, the shape of
+    every Adam moment this rank holds and, under a 2-D layout, the plan
+    and the shape of every stored parameter.  Gradients and parameters
+    of split leaves are gathered over the model group (unsplit names)."""
     from pdfnet_tpu_torch.ops.sa import knn_plain
+    from pdfnet_tpu_torch.parallel import mesh
+    cfg, model, step, state, plan = build(cfg_kw, weights, mesh_2d)
     rank, world = _where()
-    cfg, model, step, state = build(cfg_kw, weights)
     local = stripe(batch, rank, world)
     knn, left = ((knn_plain, []) if selections is None else
                  _replaying(selections, batch["input"].shape[0]))
     stats, grads = [], None
     with _knn(knn):
-        for _ in range(steps):
-            s = step(state, local, epoch, lr)
+        for i in range(steps):
+            gen = (None if seed is None
+                   else torch.Generator().manual_seed(seed + i))
+            s = step(state, local, epoch, lr, gen)
             stats.append({k: float(v) for k, v in s.items()})
             if grads is None:
-                grads = {n: (p.grad.clone() if p.grad is not None
-                             else torch.zeros_like(p)).numpy()
-                         for n, p in model.named_parameters()}
+                grads = {mesh.plain_name(n): mesh.unshard(
+                    model, n, p.grad if p.grad is not None
+                    else torch.zeros_like(p)).numpy()
+                    for n, p in model.named_parameters()}
     assert not left, "selections left over"
     opt = state.optimizer
     leaves = [p for g in opt.param_groups for p in g["params"]]
     out = {"stats": stats, "digest": _digest(model), "step": state.step,
            "moments": {i: tuple(opt.state[p]["exp_avg"].shape)
                        for i, p in enumerate(leaves) if p in opt.state}}
-    if rank == 0:
-        out["grads"] = grads
-        out["params"] = {n: p.detach().numpy().copy()
+    if mesh_2d is None:
+        params = {n: p.detach() for n, p in model.named_parameters()}
+    else:
+        host = mesh.gather_to_host(state)
+        params = host["params"]
+        out["digest"] = _digest_tree(host)
+        out["plan"] = plan
+        out["stored"] = {mesh.plain_name(n): tuple(p.shape)
                          for n, p in model.named_parameters()}
+        out["host_moments"] = {i: tuple(s["exp_avg"].shape) for i, s in
+                               host["opt_state"]["state"].items()}
+    if mesh.process_index() == 0:
+        out["grads"] = grads
+        out["params"] = {n: p.numpy().copy() for n, p in params.items()}
         out["buffers"] = {n: b.numpy().copy()
                           for n, b in model.named_buffers()
                           if n.endswith(("running_mean", "running_var"))}
     return out
+
+
+SERVE_INPUTS = ("input", "depth", "K_new", "valid")
+
+
+def eval_outputs_of(cfg_kw: dict, weights, batch: dict, serve: bool,
+                    mesh_2d=None) -> dict:
+    """The eval step (``make_eval_step``) or, with ``serve``, the serving
+    step (``infer_rgbd`` + ``eval_outputs``) on this rank's stripe of
+    ``batch`` (by data index), the model split over ``mesh_2d`` when
+    given: every output as numpy."""
+    import pdfnet_tpu_torch as port
+    cfg = port.Config(**cfg_kw)
+    model = port.HandNet(cfg)
+    load_weights(model, weights)
+    model.eval()
+    split_model(model, mesh_2d)
+    rank, world = _where()
+    local = stripe(batch, rank, world)
+    consts = port.load_loss_consts("cpu")
+    if serve:
+        out = port.infer_rgbd(model, *[local[k] for k in SERVE_INPUTS])
+        out = port.eval_outputs(cfg, consts, *out, {
+            "K_new": torch.from_numpy(local["K_new"])})
+    else:
+        out = port.make_eval_step(cfg, model, consts)(local)
+    return {k: v.numpy().copy() for k, v in out.items() if torch.is_tensor(v)}
 
 
 def conv_act_bn_train(weights: dict, x: np.ndarray) -> dict:
@@ -330,6 +408,72 @@ def conv_act_bn_train(weights: dict, x: np.ndarray) -> dict:
     return {"y": y.detach().numpy(),
             "buffers": {k: v.numpy() for k, v in module.state_dict().items()
                         if "running" in k}}
+
+
+def conv_act_bn_weights(cout: int, kernel: int, seed: int = 0) -> dict:
+    """Seeded float64 weights of ``ConvActBN(16, cout, kernel)``."""
+    rng = np.random.RandomState(seed)
+    return {"conv.weight": rng.randn(cout, 16, kernel, kernel)
+            * (16 * kernel * kernel) ** -0.5,
+            "bn.weight": rng.uniform(0.7, 1.3, cout),
+            "bn.bias": rng.uniform(-0.3, 0.3, cout),
+            "bn.running_mean": rng.uniform(-0.3, 0.3, cout),
+            "bn.running_var": rng.uniform(0.5, 2.0, cout),
+            "bn.num_batches_tracked": np.zeros((), np.int64)}
+
+
+def conv_act_bn_cuts(weights: dict, x: np.ndarray, what: str, cuts: int,
+                     mesh_2d=None) -> dict:
+    """The forward and backward of one train step (``train/step.py``'s
+    ``_rank_cuts`` and ``_run_cuts``) of a float64 ``ConvActBN`` with live
+    BatchNorm (``weights``, ``conv_act_bn_weights``) over ``cuts``
+    BatchNorm groups or accumulation chunks (``what``) of the NHWC global
+    batch ``x``, on this rank's stripe by data index: every rank a data
+    rank, or the module split over a (data, model) layout ``mesh_2d``; one
+    process without a group.  A cut's loss is the mean over its rows of
+    the squared outputs, weighted by channel.  Returns this rank's output
+    rows (in row order), the stats, the gradients (whole) and the running
+    statistics."""
+    from pdfnet_tpu_torch.models.layers import ConvActBN
+    from pdfnet_tpu_torch.parallel import mesh
+    from pdfnet_tpu_torch.train import step as step_lib
+    cout, cin, k, _ = weights["conv.weight"].shape
+    module = ConvActBN(cin, cout, k).double()
+    module.load_state_dict({n: torch.as_tensor(v) for n, v in weights.items()})
+    module.train()
+    layout = None
+    if mesh_2d is not None:
+        layout = mesh.make_mesh_2d(*mesh_2d)
+        mesh.shard_params_tp(module, layout)
+    elif mesh.is_distributed():
+        layout = mesh.Layout(mesh.process_count(), 1, mesh.process_index(),
+                             0)
+    d, D = (0, 1) if layout is None else (layout.data_index, layout.data)
+    xs = stripe({"input": x}, d, D)["input"]
+    b = {"input": torch.from_numpy(np.ascontiguousarray(
+        xs.transpose(0, 3, 1, 2)))}
+    plan = step_lib._rank_cuts(x.shape[0], cuts, what, layout)
+    coef = torch.linspace(0.5, 1.5, cout, dtype=torch.float64).view(
+        1, -1, 1, 1)
+    ys = []
+
+    def loss_of(bc):
+        y = module(bc["input"])
+        ys.append(y.detach())
+        loss = (coef * y * y).mean(dim=(1, 2, 3)).mean()
+        return loss, {"loss": loss}
+
+    norms = [module.bn]
+    stats = step_lib._run_cuts(module, plan, b, loss_of,
+                              what == "bn_stat_groups" and cuts > 1,
+                              step_lib._norm_stats(norms), layout)
+    return {"y": torch.cat(ys).numpy(),
+            "stats": {n: float(v) for n, v in stats.items()},
+            "grads": {mesh.plain_name(n): mesh.unshard(module, n,
+                                                       p.grad).numpy()
+                      for n, p in module.named_parameters()},
+            "buffers": {n: v.numpy().copy() for n, v in
+                        module.bn.state_dict().items() if "running" in n}}
 
 
 def hard_example_mining_grad(losses: np.ndarray) -> tuple:
@@ -428,3 +572,63 @@ def checkpoint_round_trip(cfg_kw: dict, path: str, out_dir: str) -> str:
     trainer.init_state()
     epoch = trainer.load(path)
     return trainer.save(out_dir, epoch)
+
+
+def column_parallel_gaps(mesh_2d, seed: int = 0) -> dict:
+    """Each module kind that ``shard_params_tp`` splits (Linear, Conv2d on
+    NCHW and on ``channels_last`` input, ConvTranspose2d, StridedUpConv,
+    Embedding read whole), in float64 at a width of 256 split over
+    ``make_mesh_2d(*mesh_2d)``'s model axis, against an unsplit copy: the
+    largest difference of the output, the input's gradient and every
+    parameter's (gathered) gradient, by kind, for ``(y * r).sum()`` with a
+    fixed ``r``."""
+    import copy
+
+    from torch import nn
+
+    from pdfnet_tpu_torch.models.layers import StridedUpConv
+    from pdfnet_tpu_torch.parallel import mesh
+    layout = mesh.make_mesh_2d(*mesh_2d)
+    gen = torch.Generator().manual_seed(seed)
+    kinds = {"linear": (lambda: nn.Linear(8, 256), (3, 5, 8)),
+             "conv": (lambda: nn.Conv2d(4, 256, 3, padding=1), (2, 4, 6, 6)),
+             "conv_channels_last": (lambda: nn.Conv2d(4, 256, 1, bias=False),
+                                    (2, 4, 6, 6)),
+             "conv_transpose": (lambda: nn.ConvTranspose2d(
+                 4, 256, 4, stride=2, padding=1), (2, 4, 5, 5)),
+             "strided_up_conv": (lambda: StridedUpConv(4, 256, 2),
+                                 (2, 4, 3, 3)),
+             "embedding": (lambda: nn.Embedding(7, 256), None)}
+    out = {}
+    for kind, (make, shape) in kinds.items():
+        ref = make().double()
+        with torch.no_grad():
+            for p in ref.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen,
+                                    dtype=torch.float64))
+        holder = nn.Module()
+        holder.m = copy.deepcopy(ref)
+        plan = mesh.shard_params_tp(holder, layout)
+        assert "m.weight" in plan, (kind, plan)
+        x = None if shape is None else torch.randn(shape, generator=gen,
+                                                   dtype=torch.float64)
+        if kind == "conv_channels_last":
+            x = x.contiguous(memory_format=torch.channels_last)
+        runs = []
+        for m in (ref, holder.m):
+            xi = None if x is None else x.clone().requires_grad_(True)
+            y = m.weight * 1.0 if xi is None else m(xi)
+            r = torch.sin(torch.arange(y.numel(), dtype=torch.float64))
+            (y * r.reshape(y.shape)).sum().backward()
+            grads = {mesh.plain_name(n): mesh.unshard(holder, "m." + n,
+                                                      p.grad)
+                     if m is holder.m else p.grad
+                     for n, p in m.named_parameters()}
+            runs.append((y.detach(), None if xi is None else xi.grad, grads))
+        (y0, gx0, g0), (y1, gx1, g1) = runs
+        gaps = [float((y0 - y1).abs().max())]
+        if gx0 is not None:
+            gaps.append(float((gx0 - gx1).abs().max()))
+        gaps += [float((g0[n] - g1[n]).abs().max()) for n in g0]
+        out[kind] = max(gaps)
+    return out

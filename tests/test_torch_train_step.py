@@ -63,6 +63,7 @@ from pdfnet_tpu_torch.ops.sa import knn_plain as sa_knn_plain
 from test_torch_eval_step import _random_like, jax_variables
 from test_torch_ranks import conv_act_bn_train, rank_group, train_steps  # noqa: F401
 from test_torch_threads import one_torch_thread  # noqa: F401
+from test_torch_threads import shared_across_workers
 
 SMALL = dict(default_resolution=64, compute_dtype="float32", sample_num=256,
              sample_num_level1=128, sample_num_level2=128, knn_k=8,
@@ -85,9 +86,11 @@ def _batch(seed=0):
 
 
 @pytest.fixture(scope="module")
-def weights():
-    """Seeded port weights and a batch for the tests of the port alone."""
-    return _port_state(), _batch()
+def weights(tmp_path_factory):
+    """Seeded port weights and a batch for the tests of the port alone,
+    drawn once for the run's workers."""
+    return shared_across_workers(tmp_path_factory, "train_step_weights",
+                                 lambda: (_port_state(), _batch()))
 
 
 def _rejection_lecun_normal_(w, fan_in, gen):

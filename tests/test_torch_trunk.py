@@ -47,7 +47,9 @@ CASES = [(64, 64, 24, 1, True),      # layer1 block0 (projected, stride 1)
 def _random_variables(module, x, rng):
     """Random weights (0.1 randn) and BatchNorm statistics in [0.5, 1.5), as
     ``tests/test_trunk_fused.py`` draws them."""
-    vs = module.init({"params": jax.random.PRNGKey(0)}, x, train=False)
+    # only the shapes are read: no init runs
+    vs = jax.eval_shape(lambda: module.init({"params": jax.random.PRNGKey(0)},
+                                            x, train=False))
     stats = jax.tree.map(lambda a: jnp.asarray(
         rng.uniform(0.5, 1.5, a.shape).astype(np.float32)), vs["batch_stats"])
     params = jax.tree.map(lambda a: jnp.asarray(
