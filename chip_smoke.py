@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (``pdfnet_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py             # from the root of a checkout
-    python3 chip_smoke.py --profile   # also profiles the bf16 steps (batch 8, 32)
+    python3 chip_smoke.py --profile   # also profiles the steps (batch 8, 32)
 
 Phases, each of which fails the run:
 
@@ -18,8 +18,11 @@ Phases, each of which fails the run:
    multiple of 32, NaN/inf clusters larger than k, points on the radius,
    k = 8 and 128) and, at 16 hands, on clouds wider than 1024 points
    (N = 1500, 2048, 2050 and 4096, k = 100 and 128, k = N = 2048, ties and
-   NaN/inf clusters), ``sa_mlp_max`` at k = 128 and 256 (k in chunks of
-   64); kernel, plain and bound times, every kernel timed by
+   NaN/inf clusters) and past the block's shared memory (k = N = 4096;
+   N = 4096, k = 3000; N = 20000, k = 64; each with and without NaN/inf
+   clusters), ``sa_mlp_max`` at k = 128 and 256 (k in chunks of 64); the
+   float32 bodies of ``sa_mlp_max`` and ``fused_bottleneck_s1`` beside the
+   bf16 ones; kernel, plain and bound times, every kernel timed by
    CUDA-graph replay (and eagerly) beside a yardstick timed the same way
    (d2 by broadcasting and ``torch.topk``, with the gather for the row
    kernels; three cuBLAS matmuls with bias, ReLU and the max; cuDNN on the
@@ -30,7 +33,9 @@ Phases, each of which fails the run:
    jittered BatchNorm statistics, on the bench's batch layout: output shapes
    and finiteness, the kernels' launch counts in one step, the float32 step
    on the card against the same model on the CPU (plain versions) at batch
-   1, and frames/s in bfloat16 and float32; and one float32 eval step at
+   1, again with torch's default TF32 flags (the step sets TF32 off
+   itself), the float32 step's launch counts, and frames/s in bfloat16 and
+   float32 at batch 8 and 32; and one float32 eval step at
    ``sample_num=2048``, ``knn_k=128`` on the card against the CPU;
 5. the train step (``create_train_state`` + ``make_train_step``: forward in
    training mode, the loss, backward, Adam) at the full width of the default
@@ -44,9 +49,10 @@ Phases, each of which fails the run:
    full width of the default ``Config`` with ``knn_method="pallas"`` and
    ``fused_trunk=True``, on the bench's random batch: output shapes and
    finiteness, the kernels' launch counts in one step, a float32 step on the
-   card against the CPU at batch 1 with deterministic sampling, and frames/s
-   in bfloat16 and float32 at batch 8 and 32 (and the default serving
-   config's bfloat16 rate at batch 8 beside them);
+   card against the CPU at batch 1 with deterministic sampling (also with
+   torch's default TF32 flags), the float32 step's launch counts, and
+   frames/s in bfloat16 and float32 at batch 8 and 32 (and the default
+   serving config's bfloat16 rate at batch 8 beside them);
 7. the train/eval CLI (``pdfnet_tpu_torch.cli.main``) in process at the
    default ``Config`` on an H2O-format tree it writes under ``chiprun_out/``
    (1280x720 frames, 24 train and 10 test records): ``--mode train`` for 3
@@ -171,8 +177,11 @@ and gradients within ``tests/test_torch_parallel.py``'s bounds, the eval
 outputs within 1e-4 of their scale.
 
 TF32 is off for the whole run (``torch.backends.cudnn.allow_tf32`` and
-``torch.backends.cuda.matmul.allow_tf32``), so every float32 number is true
-float32.  The line before the last lists the kernels as JSON; the last line
+``torch.backends.cuda.matmul.allow_tf32``), so every float32 number, the
+cuDNN and cuBLAS yardsticks' too, is true float32; the checks of phases 4
+and 6 marked so run the port's float32 steps under torch's default flags
+instead, and the CLI subprocesses of ``--ranks`` run under the CLI's own
+setting.  The line before the last lists the kernels as JSON; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, it exits 1 and prints no result.
 """
@@ -180,6 +189,7 @@ checkout of the repository, it exits 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -252,6 +262,12 @@ TRUNK_CASES = (("layer2_1", 48, 512, 128, 1), ("layer3_1", 24, 1024, 256, 1),
                ("layer2_0", 96, 256, 128, 2), ("layer3_0", 48, 512, 256, 2),
                ("layer4_0", 24, 1024, 512, 2))
 TRUNK_PER_STEP = {"layer2_1": 3, "layer3_1": 5}
+# the float32 stride-1 body's tiles beside the one ops/trunk.f32_plan takes
+# (rows, tile width, blocks a cluster): whole width without a cluster,
+# narrower tiles with their halo columns recomputed, clusters of 2
+TRUNK_F32_PLANS = {"layer2_1": ((2, 48, 1), (6, 24, 1), (3, 24, 1)),
+                   "layer3_1": ((2, 24, 1), (3, 24, 1), (3, 12, 1),
+                                (2, 12, 1), (2, 24, 2))}
 
 
 def fail(msg: str) -> int:
@@ -269,6 +285,21 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def torch_default_tf32():
+    """torch's default TF32 flags inside (cuDNN's on, cuBLAS's off), the
+    script's (both off) after: the port's float32 steps must set TF32 off
+    themselves."""
+    import torch
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -660,8 +691,11 @@ def wide_selection_cases(gen):
     """Clouds wider than 1024 points, whose ranked neighbours go to a
     workspace, 16 hands (the main path's batch), as in ``selection_cases``:
     up to 2048 points a lane keeps its 64 keys in registers, beyond it
-    recomputes them (N = 2050 and 4096).  The last flag marks the cases
-    whose level-1 selection is timed."""
+    recomputes them (N = 2050 and 4096); past the block's shared memory
+    the candidate lists spill to the workspace (k = N = 4096; N = 4096,
+    k = 3000) and the xyz is read from device memory (N = 20000), each on a
+    grid with ties and with NaN/inf clusters.  The last flag marks the
+    cases whose level-1 selection is timed."""
     import torch
 
     def grid(n):
@@ -672,6 +706,13 @@ def wide_selection_cases(gen):
     bad[:, 40:140] = float("nan")
     bad[:, 1300:1400, 0] = float("inf")
     cont = torch.rand((2 * BATCH, 4096, 3), generator=gen) * 0.4 - 0.2
+    g20k = grid(20000)
+
+    def clusters(xyz):
+        out = xyz.clone()
+        out[:, 40:140] = float("nan")
+        out[:, 1300:1400, 0] = float("inf")
+        return out
     r = 1.0 / 64
     return [("N = 2048, grid ties, on radius", g2k, 512, 64, r, True),
             ("N = 4096, grid ties", g4k, 512, 64, r, True),
@@ -680,7 +721,19 @@ def wide_selection_cases(gen):
             ("N = 1500, k = 100", g1500, 512, 100, r, False),
             ("N = 2048, k = 128", g2k, 512, 128, r, True),
             ("k = N = 2048, grid ties", g2k, 64, 2048, r, False),
-            ("N = 2048, NaN/inf clusters of 100", bad, 512, 64, r, False)]
+            ("N = 2048, NaN/inf clusters of 100", bad, 512, 64, r, False),
+            ("k = N = 4096, grid ties (lists spilled)", g4k, 32, 4096, r,
+             True),
+            ("k = N = 4096, NaN/inf clusters", clusters(g4k), 32, 4096, r,
+             False),
+            ("N = 4096, k = 3000, grid ties (lists spilled)", g4k, 32, 3000,
+             r, True),
+            ("N = 4096, k = 3000, NaN/inf clusters", clusters(g4k), 32, 3000,
+             r, False),
+            ("N = 20000, grid ties (xyz in device memory)", g20k, 512, 64, r,
+             True),
+            ("N = 20000, NaN/inf clusters", clusters(g20k), 512, 64, r,
+             False)]
 
 
 def same(got, want) -> bool:
@@ -890,7 +943,34 @@ def trunk_check(gen, dev, record) -> None:
                    f"yardstick_ms {yard:.4f} (cuDNN on the folded weights, "
                    f"graph replay); unfused Bottleneck (cuDNN, eager) "
                    f"{unfused:.4f} ms", yard)
+            if not bf16 and stride == 1:
+                trunk_f32_plans(name, x, fw, want, scale,
+                                trunk.f32_plan(BATCH, hw, hw, cin, cw))
         del block, folded, x32
+
+
+def trunk_f32_plans(name, x, fw, want, scale, chosen) -> None:
+    """The float32 stride-1 body at the tiles of ``TRUNK_F32_PLANS`` beside
+    the chosen one, each within TRUNK_TOL_F32 of the plain version, by
+    CUDA-graph replay (printed, not in the kernels line)."""
+    import torch
+    from pdfnet_tpu_torch.ops import trunk
+    plan_of = trunk.f32_plan
+    for plan in TRUNK_F32_PLANS[name]:
+        trunk.f32_plan = lambda *a, plan=plan: plan
+        try:
+            got = trunk.fused_bottleneck(x, fw)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            check(err <= TRUNK_TOL_F32 * scale, f"fused_bottleneck {name} "
+                  f"[float32, plan {plan}] differs from its plain version "
+                  f"by {err:.3e}")
+            ms = graph_ms(lambda: trunk.fused_bottleneck(x, fw))
+        finally:
+            trunk.f32_plan = plan_of
+        print(f"kernel fused_bottleneck_s1 [{name} float32, tile {plan} "
+              f"(rows, width, cluster) against the chosen {chosen}]: "
+              f"max_abs_err {err:.3e} ms {ms:.4f}")
 
 
 # ---- phase 4: the eval step ------------------------------------------------
@@ -973,34 +1053,54 @@ def eval_phase(args, card, cfg, dev):
     mcpu = port.HandNet(cfg32).eval()
     mcpu.load_state_dict({k: v.cpu() for k, v in state.items()})
     b1 = {k: v[:1] for k, v in batch.items()}
-    got = port.make_eval_step(cfg32, m32, consts)(b1)
     want = port.make_eval_step(cfg32, mcpu, port.load_loss_consts("cpu"))(
         {k: v.cpu() for k, v in b1.items()})
-    worst = 0.0
-    for key in want:
-        g, w = got[key].cpu(), want[key]
-        scale = max(1.0, w.abs().max().item())
-        err = (g - w).abs().max().item()
-        worst = max(worst, err / scale)
-        print(f"eval step [f32, batch 1] card vs cpu {key}: max_abs_err "
-              f"{err:.3e} (scale {scale:.3e})")
-        check(torch.allclose(g, w, atol=STEP_TOL * scale, rtol=STEP_TOL),
-              f"f32 eval step on the card differs from the CPU in {key}")
-    print(f"eval step [f32] card agrees with cpu: worst error / scale "
-          f"{worst:.3e} <= {STEP_TOL}")
+    # as the script runs (TF32 off), then with torch's default flags, under
+    # which the step must set TF32 off itself
+    for flags, ctx in (("", contextlib.nullcontext),
+                       (", torch's default TF32 flags", torch_default_tf32)):
+        with ctx():
+            got = port.make_eval_step(cfg32, m32, consts)(b1)
+            torch.cuda.synchronize()
+        worst = 0.0
+        for key in want:
+            g, w = got[key].cpu(), want[key]
+            scale = max(1.0, w.abs().max().item())
+            err = (g - w).abs().max().item()
+            worst = max(worst, err / scale)
+            print(f"eval step [f32, batch 1{flags}] card vs cpu {key}: "
+                  f"max_abs_err {err:.3e} (scale {scale:.3e})")
+            check(torch.allclose(g, w, atol=STEP_TOL * scale, rtol=STEP_TOL),
+                  f"f32 eval step{flags} on the card differs from the CPU "
+                  f"in {key}")
+        print(f"eval step [f32{flags}] card agrees with cpu: worst error / "
+              f"scale {worst:.3e} <= {STEP_TOL}")
+
+    # the float32 step's launches (its own bodies), not the main path's
+    step32 = port.make_eval_step(cfg32, m32, consts)
+    for m in (sa, grouping, trunk):
+        m.reset_launches()
+    step32(batch)
+    torch.cuda.synchronize()
+    l32 = {**sa.launches, **grouping.launches, **trunk.launches}
+    print(f"eval step [f32, batch {BATCH}] kernel launches: "
+          f"{json.dumps(l32)}")
+    check(l32 == launches, f"the f32 eval step launched other kernels "
+          f"than the bf16 step: {l32}")
 
     # throughput, host clock around synchronized loops, TF32 off
-    step32 = port.make_eval_step(cfg32, m32, consts)
     big = {k: torch.from_numpy(v).to(dev)
            for k, v in bench_batch(4 * BATCH, res, n, seed=1).items()}
     for dt, st, b, B in (("bf16", step, batch, BATCH),
                          ("f32", step32, batch, BATCH),
-                         ("bf16", step, big, 4 * BATCH)):
+                         ("bf16", step, big, 4 * BATCH),
+                         ("f32", step32, big, 4 * BATCH)):
         print(f"eval step frames/s [{dt}, batch {B}]: {fps(st, b, B):.2f} "
               f"({card})")
     if args.profile:
         for b, B in ((batch, BATCH), (big, 4 * BATCH)):
             profile(lambda b=b: step(b), f"eval_bf16_b{B}")
+            profile(lambda b=b: step32(b), f"eval_f32_b{B}")
     return launches
 
 
@@ -1376,13 +1476,27 @@ def serve_phase(args, card, cfg, dev):
 
     state = model.state_dict()
     serve_check_phase(scfg, state, batch, dev)
+    with torch_default_tf32():
+        serve_check_phase(scfg, state, batch, dev,
+                          ", torch's default TF32 flags")
 
-    # throughput, host clock around synchronized loops, TF32 off
+    # the float32 step's launches (its own bodies), not the main path's
     s32 = scfg.replace(compute_dtype="float32")
     m32 = port.HandNet(s32).to(dev).eval()
     m32.load_state_dict(state)
     step32 = make_serve_step(s32, m32, consts,
                              torch.Generator(device=dev).manual_seed(0))
+    for m in (sa, grouping, trunk):
+        m.reset_launches()
+    step32(batch)
+    torch.cuda.synchronize()
+    l32 = {**sa.launches, **grouping.launches, **trunk.launches}
+    print(f"serve step [f32, batch {BATCH}] kernel launches: "
+          f"{json.dumps(l32)}")
+    check(l32 == launches, f"the f32 serving step launched other kernels "
+          f"than the bf16 step: {l32}")
+
+    # throughput, host clock around synchronized loops, TF32 off
     mdef = port.HandNet(cfg).to(dev).eval()
     mdef.load_state_dict(state)
     step_def = make_serve_step(cfg, mdef, consts,
@@ -1400,6 +1514,7 @@ def serve_phase(args, card, cfg, dev):
     if args.profile:
         for b, B in ((batch, BATCH), (big, 4 * BATCH)):
             profile(lambda b=b: step(b), f"serve_bf16_b{B}")
+            profile(lambda b=b: step32(b), f"serve_f32_b{B}")
     del m32, mdef, big
     return launches
 
@@ -1490,9 +1605,10 @@ def compare_steps(label, got, want) -> None:
           f"<= {STEP_TOL}")
 
 
-def serve_check_phase(scfg, state, batch, dev) -> None:
+def serve_check_phase(scfg, state, batch, dev, flags: str = "") -> None:
     """One float32 serving step on the card against the same step on the
-    CPU at batch 1, with deterministic point sampling.
+    CPU at batch 1, with deterministic point sampling (``flags`` names the
+    TF32 flags it runs under, for the printed lines).
 
     A predicted-mask pixel at 0.5, or a depth at a band edge, can fall on
     either side on the two devices, and a neighbour on a tie or on the ball
@@ -1534,12 +1650,12 @@ def serve_check_phase(scfg, state, batch, dev) -> None:
         runs.append({k: v.cpu() for k, v in out.items()})
     check(not clouds and replay.done(),
           "the CPU step built clouds or selected fewer times than the card's")
-    print(f"serve step [f32, batch 1]: the CPU's own masks differ from the "
-          f"card's in {flips['mask']} pixels, its clouds in "
+    print(f"serve step [f32, batch 1{flags}]: the CPU's own masks differ "
+          f"from the card's in {flips['mask']} pixels, its clouds in "
           f"{flips['choose']} chosen pixels, its neighbour selection in "
           f"{replay.flips['neighbours']} of {replay.flips['slots']} slots; "
           f"the CPU step replays the card's")
-    compare_steps("serve step [f32, batch 1]", *runs)
+    compare_steps(f"serve step [f32, batch 1{flags}]", *runs)
 
 
 # ---- phase 11 (run after phase 6): FPS and surface normals ----------------
@@ -2777,10 +2893,10 @@ RANKS_ARGS = ["--mode", "train", "--synthetic", "--batch_size", str(BATCH),
 def run_cli_processes(argvs, timeout=900):
     """``python -m pdfnet_tpu_torch.cli.main`` once for each argv, all
     started together; their outputs, after every one has exited (each is
-    killed at ``timeout``).  TF32 is off in them as in this script
-    (``NVIDIA_TF32_OVERRIDE=0``): cuDNN's default would run the float32
-    convolutions in TF32, by other algorithms at batch 2 than at 8."""
-    env = dict(os.environ, PYTHONPATH=REPO, NVIDIA_TF32_OVERRIDE="0")
+    killed at ``timeout``).  The CLI sets TF32 off itself (cuDNN's default
+    would run the float32 convolutions in TF32, by other algorithms at
+    batch 2 than at 8), so the ``--ranks`` checks hold its own setting."""
+    env = dict(os.environ, PYTHONPATH=REPO)
     procs = [subprocess.Popen([sys.executable, "-m",
                                "pdfnet_tpu_torch.cli.main", *argv],
                               cwd=REPO, env=env, stdout=subprocess.PIPE,
@@ -3906,10 +4022,12 @@ def profile(fn, label: str, steps: int = 5) -> float:
     device = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     own_ms = sum(e.self_device_time_total for e in kernels
                  if any(n in e.key for n in ("sa_group_kernel",
+                                             "sa_mlp_f32_kernel",
                                              "sa_mlp_max_kernel",
                                              "sa_mlp_tc_kernel",
                                              "bottleneck_kernel",
-                                             "bottleneck_tc_kernel"))
+                                             "bottleneck_tc_kernel",
+                                             "bottleneck_f32_kernel"))
                  ) / 1e3 / steps
     print(f"profile [{label}]: wall {wall:.3f} ms/step, device "
           f"{device:.3f} ms/step (busy {device / wall:.3f}), the port's "
@@ -3933,15 +4051,130 @@ def profile(fn, label: str, steps: int = 5) -> float:
     return device / wall
 
 
+def rates_kernel_times(card, dev) -> None:
+    """``--rates``: every kernel's ms a call by CUDA-graph replay at the main
+    path's shapes at batch 8, bf16 and float32, through the wrappers every
+    tree of the port has (the kernel phase's inputs and weights)."""
+    import torch
+    import pdfnet_tpu_torch as port
+    from pdfnet_tpu_torch.ops import grouping, sa, trunk
+
+    cfg = port.Config()
+    gen = torch.Generator().manual_seed(0)
+    xyz, feat = kernel_inputs(cfg, gen, dev)
+    S1, S2, k = cfg.sample_num_level1, cfg.sample_num_level2, cfg.knn_k
+    r1, r2 = cfg.ball_radius, cfg.ball_radius2
+    w1 = folded_mlp(sa.MLP_WIDTHS[0], 3, gen, dev)
+    w2 = folded_mlp(sa.MLP_WIDTHS[1], feat.shape[-1], gen, dev)
+    fb = feat.bfloat16().contiguous()
+    calls = [("sa_group_l1 [f32]", lambda: sa.sa_group_l1(xyz, S1, k, r1)),
+             ("sa_group_l2 [bf16]", lambda: sa.sa_group_l2(fb, S2, k, r2)),
+             ("knn_group_xyz [f32]",
+              lambda: grouping.knn_group_xyz(xyz, S1, k)),
+             ("group_feat [bf16]", lambda: grouping.group_feat(fb, S2, k, r2)),
+             ("knn [level 1]", lambda: sa.knn(xyz[:, :S1].contiguous(), xyz,
+                                              k))]
+    for kk in (k, 128, 256):
+        g1 = sa.group_plain(xyz, S1, kk, r1)
+        g2 = sa.group_plain(feat, S2, kk, r2)
+        for level, g, w in ((1, g1, w1), (2, g2, w2)):
+            for cdt in (torch.float32, torch.bfloat16):
+                if kk != k and cdt == torch.bfloat16:
+                    continue
+                gin = g.to(cdt).contiguous() if level == 2 else g
+                wc = [(wi.to(cdt), bi) for wi, bi in w]
+                calls.append((f"sa_mlp_max [level {level} "
+                              f"{str(cdt).split('.')[-1]} k={kk}]",
+                              lambda gin=gin, wc=wc, cdt=cdt:
+                              sa.sa_mlp_max(gin, wc, cdt)))
+    for name, hw, cin, cw, stride in TRUNK_CASES[:2]:
+        block = random_bottleneck(cin, cw, stride, gen).to(dev)
+        with torch.no_grad():
+            folded = trunk.fold_bottleneck(block)
+        x32 = torch.relu(torch.randn((BATCH, hw, hw, cin), generator=gen))
+        for dt in (torch.float32, torch.bfloat16):
+            x = x32.to(dev, dt).contiguous()
+            fw = {n: v.to(dt) if n.startswith("w") else v
+                  for n, v in folded.items()}
+            calls.append((f"fused_bottleneck_s1 [{name} "
+                          f"{str(dt).split('.')[-1]}]",
+                          lambda x=x, fw=fw: trunk.fused_bottleneck(x, fw)))
+    for label, fn in calls:
+        print(f"rates: kernel {label}: ms {graph_ms(fn):.4f} ({card})")
+
+
+def f32_rates_phase(card, dev, with_profile: bool) -> None:
+    """``--rates``: the float32 eval, serving and train steps at batch 8 and
+    32 at the default ``Config``'s widths (TF32 off), through the steps
+    every tree of the port has, so that one command measures a parent and
+    its change alike; with ``--profile`` each eval and serving step's device
+    time by kernel."""
+    import torch
+    import pdfnet_tpu_torch as port
+
+    cfg = port.Config(compute_dtype="float32")
+    res, n = cfg.default_resolution, cfg.sample_num
+    consts = port.load_loss_consts(dev)
+    batches = {B: {k: torch.from_numpy(v).to(dev)
+                   for k, v in bench_batch(B, res, n, seed=1).items()}
+               for B in (BATCH, 4 * BATCH)}
+    model = port.build_model(cfg, device=dev)
+    jitter_bn_(model, seed=1)
+    step = port.make_eval_step(cfg, model, consts)
+    for B, b in batches.items():
+        print(f"rates: eval step frames/s [f32, batch {B}]: "
+              f"{fps(step, b, B):.2f} ({card})")
+        if with_profile:
+            profile(lambda b=b: step(b), f"rates_eval_f32_b{B}")
+    scfg = cfg.replace(knn_method="pallas", fused_trunk=True)
+    model = port.build_model(scfg, device=dev)
+    jitter_bn_(model, seed=3)
+    split_masks_(model, batches[BATCH]["input"])
+    step = make_serve_step(scfg, model, consts,
+                           torch.Generator(device=dev).manual_seed(0))
+    for B, b in batches.items():
+        print(f"rates: serve step frames/s [f32, batch {B}]: "
+              f"{fps(step, b, B):.2f} ({card})")
+        if with_profile:
+            profile(lambda b=b: step(b), f"rates_serve_f32_b{B}")
+    del model, step, batches
+    for B in (BATCH, 4 * BATCH):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in port.make_batch(cfg, B, seed=0).items()}
+        model = port.build_model(cfg, device=dev)
+        state = port.create_train_state(cfg, model)
+        tstep = port.make_train_step(cfg, model, consts)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        lr = port.lr_at_epoch(cfg, 0)
+        for _ in range(TRAIN_WARMUP):
+            tstep(state, batch, 0, lr, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_ITERS):
+            tstep(state, batch, 0, lr, gen)
+        torch.cuda.synchronize()
+        rate = B * TRAIN_ITERS / (time.perf_counter() - t0)
+        print(f"rates: train step samples/s [f32, batch {B}]: {rate:.2f} "
+              f"({card})")
+        del model, state, tstep, batch
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile the bf16 eval, train and serving "
-                         "steps at batch 8 and 32")
+                         "steps and the float32 eval and serving steps at "
+                         "batch 8 and 32")
     ap.add_argument("--ranks", type=int, default=0,
                     help="instead: the train CLI in this many processes, "
                          "one a card, against one process (and with 4, "
                          "the (2 x 2) layout's train and eval steps)")
+    ap.add_argument("--rates", action="store_true",
+                    help="instead: every kernel's ms at the main shapes, "
+                         "and the float32 eval, serving and train steps' "
+                         "rates at batch 8 and 32 (with --profile, their "
+                         "device time by kernel)")
     ap.add_argument("--tp_rank", type=int, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--coordinator", help=argparse.SUPPRESS)
@@ -3978,6 +4211,14 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
+
+    if args.rates:
+        rates_kernel_times(card, torch.device("cuda"))
+        f32_rates_phase(card, torch.device("cuda"), args.profile)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     if args.ranks:
         check(torch.cuda.device_count() >= args.ranks,

@@ -98,7 +98,9 @@ def main(argv=None, device: str = "cuda") -> dict:
     from pdfnet_tpu_torch.train.loss import load_loss_consts
     from pdfnet_tpu_torch.train.step import (create_train_state,
                                              make_eval_step, make_train_step)
+    from pdfnet_tpu_torch.utils.precision import tf32_off
 
+    tf32_off()          # float32 is true float32
     cfg = Config(default_resolution=args.res, batch_size=args.batch,
                  compute_dtype="bfloat16", knn_method=args.knn,
                  fused_trunk=args.fused_trunk, s2d_stem=args.s2d_stem)

@@ -123,8 +123,10 @@ def main(argv=None):
     from pdfnet_tpu_torch.models.handnet import infer_rgbd
     from pdfnet_tpu_torch.render import render_two_hands
     from pdfnet_tpu_torch.train.loss import eval_outputs
+    from pdfnet_tpu_torch.utils.precision import tf32_off
     from pdfnet_tpu_torch.utils.vis import draw_hand_skeleton
 
+    tf32_off()          # float32 is true float32
     cfg, model, consts, img_list = setup(args, 1)
     device = next(model.parameters()).device
     mean = np.asarray(cfg.mean, np.float32)

@@ -112,7 +112,9 @@ def main(argv=None):
 
     from pdfnet_tpu_torch.models.handnet import infer_rgbd
     from pdfnet_tpu_torch.train.loss import eval_outputs
+    from pdfnet_tpu_torch.utils.precision import tf32_off
 
+    tf32_off()          # float32 is true float32
     B, res = args.batch, args.res
     cfg, model, consts, files = setup(args, B)
     device = next(model.parameters()).device

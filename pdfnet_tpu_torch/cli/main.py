@@ -184,6 +184,9 @@ def main(argv=None):
     check_args(args)
     cfg = config_from_args(args)
 
+    from pdfnet_tpu_torch.utils.precision import tf32_off
+    tf32_off()          # float32 is true float32
+
     from pdfnet_tpu_torch.models.handnet import check_config
     from pdfnet_tpu_torch.train.trainer import check_trainer_config
     if not cfg.arch.startswith("csp"):

@@ -67,12 +67,21 @@
 //
 // Wide clouds (N > 1024): the ranked composites go to a global workspace
 // of (H, S, k) 8-byte entries instead of a second shared array, so shared
-// memory is 8 * k * 8 + 12 * N bytes: N = 4096 takes k <= 2864, k = N up
-// to N = 3058 (kMaxSmem, the H100's 227 KB a block, is the one limit;
-// ops/sa.selection_smem_bytes mirrors it).  Up to N = 2048 the lane keeps
-// its 64 keys in registers (PL = 64); wider, every pass of phases 1-3
-// recomputes them from the staged xyz (PL = 0: three subtractions, three
-// products, two sums and the compare a key, bit-identical to phase 1's).
+// memory is 8 * k * 8 + 12 * N bytes.  Up to N = 2048 the lane keeps its 64
+// keys in registers (PL = 64); wider, every pass of phases 1-3 recomputes
+// them from the xyz (PL = 0: three subtractions, three products, two sums
+// and the compare a key, bit-identical to phase 1's).
+//
+// Past shared memory (8 * k * 8 + 12 * N > kMaxSmem, the H100's 227 KB a
+// block: N = 4096 with k > 2864, k = N > 3058, N > 19370 at any k), the
+// selection spills instead of refusing, on the PL = 0 path only (the main
+// shapes, N <= 4096 and k <= 128, never spill and keep their code):
+// spill 1 puts the per-warp candidate lists in device memory too, a second
+// (H, S, k) half of the workspace, and keeps the staged xyz; spill 2 (12 *
+// N > kMaxSmem) also reads each point's xyz from its row in device memory
+// (L2), converted as the staged copy would be.  The arithmetic and the
+// order are those of the other paths, so the result is the same bits.
+// ops/sa.selection_smem_bytes and selection_spill mirror these sizes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -103,15 +112,32 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
+// Channel d < 3 of point n of a hand: staged in shared memory as float
+// (N, 3), or (spill 2) read from the hand's (N, C) rows in device memory.
+struct SharedXyz {
+  const float* s;
+  __device__ __forceinline__ float operator()(int n, int d) const {
+    return s[3 * n + d];
+  }
+};
+template <typename T>
+struct GlobalXyz {
+  const T* g;
+  int C;
+  __device__ __forceinline__ float operator()(int n, int d) const {
+    return to_f32(g[static_cast<int64_t>(n) * C + d]);
+  }
+};
+
 // The rank key of point n (phase 1): d2's bit pattern, NaN canonicalised
 // above +inf, kPad past the hand.
-__device__ __forceinline__ unsigned point_key(const float* __restrict__ sxyz,
-                                              int n, int N, float cx,
-                                              float cy, float cz) {
+template <typename X>
+__device__ __forceinline__ unsigned point_key(const X& xyz, int n, int N,
+                                              float cx, float cy, float cz) {
   if (n >= N) return kPad;
-  const float dx = __fsub_rn(sxyz[3 * n + 0], cx);
-  const float dy = __fsub_rn(sxyz[3 * n + 1], cy);
-  const float dz = __fsub_rn(sxyz[3 * n + 2], cz);
+  const float dx = __fsub_rn(xyz(n, 0), cx);
+  const float dy = __fsub_rn(xyz(n, 1), cy);
+  const float dz = __fsub_rn(xyz(n, 2), cz);
   const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                             __fmul_rn(dz, dz));
   return d != d ? kNaNKey : __float_as_uint(d);
@@ -233,15 +259,16 @@ __device__ __forceinline__ void select_center(
 
 // Phases 1-3 for clouds wider than kRegKeys: the same selection with each
 // lane's keys j = 0 .. ceil(N/32) - 1 recomputed on every pass.
+template <typename X>
 __device__ __forceinline__ void select_center_wide(
-    const float* __restrict__ sxyz, float cx, float cy, float cz, int N,
-    int K, unsigned long long* __restrict__ cand,
+    const X& xyz, float cx, float cy, float cz, int N, int K,
+    unsigned long long* __restrict__ cand,
     unsigned long long* __restrict__ sorted) {
   const int lane = threadIdx.x & 31;
   const int J = (N + 31) / 32;
   unsigned m1 = kPad, m2 = kPad;
   for (int j = 0; j < J; ++j) {
-    const unsigned a = point_key(sxyz, j * 32 + lane, N, cx, cy, cz);
+    const unsigned a = point_key(xyz, j * 32 + lane, N, cx, cy, cz);
     m2 = min(m2, max(m1, a));
     m1 = min(m1, a);
   }
@@ -251,7 +278,7 @@ __device__ __forceinline__ void select_center_wide(
     const unsigned mid = lo + ((hi - lo) >> 1);
     unsigned c = 0;
     for (int j = 0; j < J; ++j) {
-      c += point_key(sxyz, j * 32 + lane, N, cx, cy, cz) <= mid ? 1u : 0u;
+      c += point_key(xyz, j * 32 + lane, N, cx, cy, cz) <= mid ? 1u : 0u;
     }
     if (__reduce_add_sync(kFull, c) >= static_cast<unsigned>(K)) {
       hi = mid;
@@ -262,14 +289,14 @@ __device__ __forceinline__ void select_center_wide(
   const unsigned T = lo;
   unsigned less = 0;
   for (int j = 0; j < J; ++j) {
-    less += point_key(sxyz, j * 32 + lane, N, cx, cy, cz) < T ? 1u : 0u;
+    less += point_key(xyz, j * 32 + lane, N, cx, cy, cz) < T ? 1u : 0u;
   }
   const unsigned take = K - __reduce_add_sync(kFull, less);   // >= 1
 
   const unsigned below = (1u << lane) - 1u;
   unsigned eq_seen = 0, pos = 0;
   for (int j = 0; j < J; ++j) {
-    const unsigned a = point_key(sxyz, j * 32 + lane, N, cx, cy, cz);
+    const unsigned a = point_key(xyz, j * 32 + lane, N, cx, cy, cz);
     const bool eq = a == T;
     const unsigned beq = __ballot_sync(kFull, eq);
     const bool sel = a < T || (eq && eq_seen + __popc(beq & below) < take);
@@ -291,9 +318,9 @@ __device__ __forceinline__ void select_center_wide(
 // choice is one per row and both the loads and the stores of a warp are
 // contiguous.  Four rows of up to 160 channels are loaded before any is
 // stored, to keep enough loads in flight at level 2's few blocks per SM.
-template <typename T, bool kBall>
+template <typename T, bool kBall, typename X>
 __device__ __forceinline__ void write_rows(
-    const T* __restrict__ fh, const float* __restrict__ sxyz,
+    const T* __restrict__ fh, const X& xyz,
     const unsigned long long* __restrict__ sorted, T* __restrict__ ob,
     int s0, int rows, int C, int K, float r2) {
   constexpr int kR = 4, kT = 5;
@@ -332,7 +359,7 @@ __device__ __forceinline__ void write_rows(
           if (!ok[u] || ch >= C) continue;
           T x = v[u][t];
           if (ch < 3) {
-            x = in[u] ? from_f32<T>(__fsub_rn(to_f32(x), sxyz[3 * sq[u] + ch]))
+            x = in[u] ? from_f32<T>(__fsub_rn(to_f32(x), xyz(sq[u], ch)))
                       : from_f32<T>(0.0f);
           }
           dst[u][ch] = x;
@@ -349,44 +376,64 @@ __device__ __forceinline__ void write_rows(
 // PL: keys per lane in registers, or 0 to recompute them.  Wide clouds
 // (PL == 0 or 64, N > kWidePoints) rank their composites into ws, (H, S, K)
 // entries.  Shared memory: two (kWarps, K) arrays of composites (one for a
-// wide cloud), then the (N, 3) xyz.
-template <typename T, bool kSel, bool kBall, bool kRows, int PL>
+// wide cloud), then the (N, 3) xyz.  kSpill (PL == 0 only): 1 puts the
+// candidate lists in ws too, a second (H, S, K) half; 2 also leaves the xyz
+// in device memory.
+template <typename T, bool kSel, bool kBall, bool kRows, int PL,
+          int kSpill = 0>
 __global__ void __launch_bounds__(kWarps * 32)
 sa_group_kernel(const T* __restrict__ feat, T* __restrict__ out,
                 int32_t* __restrict__ idx_out, float* __restrict__ dist_out,
                 const float* __restrict__ centers,
                 unsigned long long* __restrict__ ws, int N, int C, int S,
                 int K, float r2) {
+  static_assert(kSpill == 0 || PL == 0, "only the PL = 0 path spills");
   constexpr bool kWide = PL == 0 || PL > 32;
   extern __shared__ __align__(16) unsigned char smem[];
   const int h = blockIdx.y;
   const int s0 = blockIdx.x * kWarps;
-  unsigned long long* cand = reinterpret_cast<unsigned long long*>(smem);
-  unsigned long long* sorted =
-      kWide ? ws + (static_cast<int64_t>(h) * S + s0) * K
-            : cand + kWarps * K;
-  float* sxyz = reinterpret_cast<float*>(cand + (kWide ? 1 : 2) * kWarps * K);
+  const int64_t block_rows = (static_cast<int64_t>(h) * S + s0) * K;
+  unsigned long long* cand =
+      kSpill > 0
+          ? ws + static_cast<int64_t>(gridDim.y) * S * K + block_rows
+          : reinterpret_cast<unsigned long long*>(smem);
+  unsigned long long* sorted = kWide ? ws + block_rows : cand + kWarps * K;
+  float* sxyz = kSpill > 0 ? reinterpret_cast<float*>(smem)
+                           : reinterpret_cast<float*>(
+                                 cand + (kWide ? 1 : 2) * kWarps * K);
 
   const T* fh = feat + static_cast<int64_t>(h) * N * C;
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    const T* row = fh + static_cast<int64_t>(i) * C;
-    sxyz[3 * i + 0] = to_f32(row[0]);
-    sxyz[3 * i + 1] = to_f32(row[1]);
-    sxyz[3 * i + 2] = to_f32(row[2]);
+  if constexpr (kSpill < 2) {
+    for (int i = threadIdx.x; i < N; i += blockDim.x) {
+      const T* row = fh + static_cast<int64_t>(i) * C;
+      sxyz[3 * i + 0] = to_f32(row[0]);
+      sxyz[3 * i + 1] = to_f32(row[1]);
+      sxyz[3 * i + 2] = to_f32(row[2]);
+    }
+    __syncthreads();
   }
-  __syncthreads();
+  const auto xyz = [&] {
+    if constexpr (kSpill == 2) {
+      return GlobalXyz<T>{fh, C};
+    } else {
+      return SharedXyz{sxyz};
+    }
+  }();
 
   const int w = threadIdx.x >> 5;
   const int s = s0 + w;
   if (s < S) {
-    const float* ctr = centers != nullptr
-                           ? centers + (static_cast<int64_t>(h) * S + s) * 3
-                           : sxyz + 3 * s;
+    const float* ctr =
+        centers != nullptr ? centers + (static_cast<int64_t>(h) * S + s) * 3
+                           : nullptr;
+    const float cx = ctr != nullptr ? ctr[0] : xyz(s, 0);
+    const float cy = ctr != nullptr ? ctr[1] : xyz(s, 1);
+    const float cz = ctr != nullptr ? ctr[2] : xyz(s, 2);
     if constexpr (PL > 0) {
-      select_center<PL>(sxyz, ctr[0], ctr[1], ctr[2], N, K, cand + w * K,
+      select_center<PL>(sxyz, cx, cy, cz, N, K, cand + w * K,
                         sorted + w * K);
     } else {
-      select_center_wide(sxyz, ctr[0], ctr[1], ctr[2], N, K, cand + w * K,
+      select_center_wide(xyz, cx, cy, cz, N, K, cand + w * K,
                          sorted + w * K);
     }
   }
@@ -405,7 +452,7 @@ sa_group_kernel(const T* __restrict__ feat, T* __restrict__ out,
   if (!kRows) return;
   T* ob = out + row0 * C;
   if (C >= 32) {
-    write_rows<T, kBall>(fh, sxyz, sorted, ob, s0, nw * K, C, K, r2);
+    write_rows<T, kBall>(fh, xyz, sorted, ob, s0, nw * K, C, K, r2);
     return;
   }
 
@@ -416,7 +463,7 @@ sa_group_kernel(const T* __restrict__ feat, T* __restrict__ out,
     const int sq = s0 + wq;
     if (!kBall || __uint_as_float(static_cast<unsigned>(c >> 32)) <= r2) {
       const T v = fh[static_cast<int64_t>(c & 0xffffffffu) * C + ch];
-      return ch < 3 ? from_f32<T>(__fsub_rn(to_f32(v), sxyz[3 * sq + ch]))
+      return ch < 3 ? from_f32<T>(__fsub_rn(to_f32(v), xyz(sq, ch)))
                     : v;
     }
     return ch < 3 ? from_f32<T>(0.0f) : fh[static_cast<int64_t>(sq) * C + ch];
@@ -457,12 +504,13 @@ sa_group_kernel(const T* __restrict__ feat, T* __restrict__ out,
   }
 }
 
-template <typename T, bool kSel, bool kBall, bool kRows, int PL>
+template <typename T, bool kSel, bool kBall, bool kRows, int PL,
+          int kSpill = 0>
 int launch_pl(dim3 grid, size_t smem, cudaStream_t stream,
               const T* feat, T* out, int32_t* idx, float* dist,
               const float* centers, unsigned long long* ws, int N, int C,
               int S, int K, float r2) {
-  auto kernel = sa_group_kernel<T, kSel, kBall, kRows, PL>;
+  auto kernel = sa_group_kernel<T, kSel, kBall, kRows, PL, kSpill>;
   if (smem > static_cast<size_t>(kSmemDefault)) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -481,7 +529,15 @@ size_t smem_bytes(int N, int K) {
          static_cast<size_t>(N) * 3 * sizeof(float);
 }
 
-// ws: (H, S, K) 8-byte entries, needed (and only used) when N > kWidePoints.
+// 0: everything in shared memory; 1: the candidate lists in ws; 2: the xyz
+// in device memory too.  Mirrored by ops/sa.selection_spill.
+int spill_of(int N, int K) {
+  if (smem_bytes(N, K) <= kMaxSmem) return 0;
+  return static_cast<size_t>(N) * 3 * sizeof(float) <= kMaxSmem ? 1 : 2;
+}
+
+// ws: (H, S, K) 8-byte entries, needed (and only used) when N > kWidePoints;
+// twice that when the selection spills (spill_of > 0).
 template <typename T, bool kSel, bool kBall, bool kRows = true>
 int launch(const void* feat, void* out, void* idx, void* dist, void* ws,
            int H, int N, int C, int S, int K, float r2, void* stream,
@@ -492,8 +548,7 @@ int launch(const void* feat, void* out, void* idx, void* dist, void* ws,
       (N > kWidePoints && ws == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = smem_bytes(N, K);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const int spill = spill_of(N, K);
   const dim3 grid((S + kWarps - 1) / kWarps, H);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* f = static_cast<const T*>(feat);
@@ -502,6 +557,16 @@ int launch(const void* feat, void* out, void* idx, void* dist, void* ws,
   float* d = static_cast<float*>(dist);
   const float* c = static_cast<const float*>(centers);
   auto* w = static_cast<unsigned long long*>(ws);
+  if (spill == 1) {
+    return launch_pl<T, kSel, kBall, kRows, 0, 1>(
+        grid, static_cast<size_t>(N) * 3 * sizeof(float), st, f, o, i, d, c,
+        w, N, C, S, K, r2);
+  }
+  if (spill == 2) {
+    return launch_pl<T, kSel, kBall, kRows, 0, 2>(grid, 0, st, f, o, i, d, c,
+                                                  w, N, C, S, K, r2);
+  }
+  const size_t smem = smem_bytes(N, K);
   if (N <= 256) {
     return launch_pl<T, kSel, kBall, kRows, 8>(grid, smem, st, f, o, i, d,
                                                c, w, N, C, S, K, r2);
@@ -525,7 +590,8 @@ int launch(const void* feat, void* out, void* idx, void* dist, void* ws,
 }  // namespace
 
 // Every entry point takes ws, a device workspace of H * S * K 8-byte entries
-// that is used only for wide clouds (N > 1024) and may be null otherwise.
+// (2 * H * S * K where the selection spills past shared memory) that is used
+// only for wide clouds (N > 1024) and may be null otherwise.
 
 // Eval, level 1: points (H, N, 3) float32 -> out (H, S, K, 3) float32.
 extern "C" int sa_group_l1(const void* points, void* out, void* ws, int H,

@@ -39,11 +39,22 @@
 // row buffers are those of k = 64 whatever k is; k <= 64 is one chunk and
 // the code path of before.
 //
-// float32 compute (sa_mlp_max_kernel): float32 FMAs on the CUDA cores, one
-// block of 256 threads per center, rows and hidden layers in shared memory,
-// each thread one output column for a group of rows, weights read from L2.
-// A float32 product on the tensor cores would be TF32, and the float32
-// contract is true float32.
+// float32 compute (sa_mlp_f32_kernel, both levels of the float32 eval
+// path): float32 FMAs on the CUDA cores, in true float32 (a float32
+// product on the tensor cores would be TF32).  Its bound is the FP32 rate:
+// 13.1 / 17.3 GFLOP a call at batch 8, 0.195 / 0.258 ms at 67 TFLOP/s.
+// Persistent blocks of 256 threads, one an SM, each walking units of 128
+// rows (two centers' 64, or a chunk of a center's k > 64) with the hidden
+// layers in shared memory; each of 16 x 16 threads holds an outer product
+// of its 8 rows (rg + 16 i) by 4 or 8 columns, A and B read as float4, so
+// that each loaded value feeds 4 to 8 FMAs.  Level 1 stages its weights in
+// shared memory once (50 KB).  Level 2 stages w2 (64 KB) and streams w1
+// and w3 in depth chunks of 16 through a 2-stage cp.async ring: staging
+// w1 and w2 (133 KB) leaves room for units of 64 rows only, whose 4 x 8
+// outer products ran at ~38 % of the FP32 rate.  A unit's rows are copied
+// by cp.async while the previous unit's last two layers run.  The max over
+// k runs in registers (across a center's chunks where k > 64), then across
+// the row groups by a shuffle and shared memory.
 //
 // Bound on the H100 (NVIDIA H100 80GB HBM3, 700 W), batch 8 = 16 hands: the
 // products (2*k*(C*F1 + F1*F2 + F2*F3) per center) at the bf16 tensor-core
@@ -69,117 +80,386 @@ constexpr size_t kMaxSmem = 232448;  // 227 KB per block on the H100
 
 // ---- float32 compute: the CUDA-core body ----------------------------------
 
-// y[r, c] = relu(sum_i x[r, i] * w[i, c] + b[c]) for kRows rows.
-// x: shared (kRows, cin_pad), zero beyond cin; w: global (cin, COUT).
-// LAST: instead of storing y, fold the thread's row group's max over its
-// valid rows (r < K, the chunk's rows) into run.
-template <int COUT, bool LAST>
-__device__ __forceinline__ void layer(const float* __restrict__ x, int cin,
-                                      int cin_pad,
-                                      const float* __restrict__ w,
-                                      const float* __restrict__ b,
-                                      float* __restrict__ y, int K,
-                                      float& run) {
-  static_assert(kThreads % COUT == 0, "COUT must divide the block");
-  constexpr int kGroups = kThreads / COUT;
-  constexpr int R = kRows / kGroups;
-  const int c = threadIdx.x % COUT;
-  const int r0 = (threadIdx.x / COUT) * R;
-  float acc[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = 0.0f;
-  for (int i = 0; i < cin_pad; i += 4) {
-    float wv[4];
+namespace f32 {
+
+constexpr int kGroups = 16;          // row groups (and column groups)
+constexpr int kRM = 8;               // rows a thread: rg + 16 i
+constexpr int kM = kGroups * kRM;    // rows a unit
+constexpr int kNS = kM / kRows;      // centers a unit where k <= 64
+constexpr int kKC = 16;              // depth of a streamed weight chunk
+constexpr int kStages = 2;           // chunks in the ring
+constexpr int kRing = kStages * kKC * 128;
+constexpr int kWarps = kThreads / 32;
+
+// Level 2's widths (F3 > 128) stream w1 and w3 through the ring and stage
+// w2; level 1's stage all three.  The input's depth is padded to 16 for
+// the streamed w1, to 4 otherwise.
+template <int F3>
+__host__ __device__ __forceinline__ int c_pad_of(int C) {
+  return F3 > 128 ? (C + 15) / 16 * 16 : (C + 3) / 4 * 4;
+}
+
+// Shared memory (floats).  Mirrored by ops/sa.mlp_f32_smem_bytes.
+template <int F1, int F2, int F3>
+__host__ __device__ __forceinline__ int smem_floats(int C) {
+  const int cp = c_pad_of<F3>(C);
+  if (F3 > 128) {    // w2, the ring, x rows, one hidden layer at a time
+    return F1 * F2 + kRing + kM * (cp + 4) + kM * ((F1 > F2 ? F1 : F2) + 4);
+  }
+  return cp * F1 + F1 * F2 + F2 * F3 + kM * cp + kM * (F1 + 4) +
+         kM * (F2 + 4) + kWarps * kNS * F3;
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   mma::smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void fma4(float (&acc)[4], float a,
+                                     const float4& b) {
+  acc[0] = fmaf(a, b.x, acc[0]);
+  acc[1] = fmaf(a, b.y, acc[1]);
+  acc[2] = fmaf(a, b.z, acc[2]);
+  acc[3] = fmaf(a, b.w, acc[3]);
+}
+
+// acc[i][h] += A's row rg + 16 i @ B's columns 64 h + 0..3 over k < K
+// (K % 4 == 0), A (stride lda) and B (stride ldb, already at the thread's
+// first column) in shared memory, read as float4.
+template <int NH>
+__device__ __forceinline__ void product(float (&acc)[kRM][NH][4],
+                                        const float* A, int lda,
+                                        const float* B, int ldb, int K) {
+  const int rg = threadIdx.x / kGroups;
+#pragma unroll 2
+  for (int k = 0; k < K; k += 4) {
+    float4 bv[4][NH];
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
-      wv[t] = i + t < cin ? __ldg(w + static_cast<int64_t>(i + t) * COUT + c)
-                          : 0.0f;
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        bv[t][h] = *reinterpret_cast<const float4*>(B + (k + t) * ldb +
+                                                    64 * h);
+      }
     }
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float4 xv =
-          *reinterpret_cast<const float4*>(x + (r0 + r) * cin_pad + i);
-      acc[r] = fmaf(xv.x, wv[0], acc[r]);
-      acc[r] = fmaf(xv.y, wv[1], acc[r]);
-      acc[r] = fmaf(xv.z, wv[2], acc[r]);
-      acc[r] = fmaf(xv.w, wv[3], acc[r]);
-    }
-  }
-  const float bv = b[c];
-  if (LAST) {
-    float m = -CUDART_INF_F;
+    for (int i = 0; i < kRM; ++i) {
+      const float4 av = *reinterpret_cast<const float4*>(
+          A + (rg + kGroups * i) * lda + k);
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (r0 + r < K) m = fmaxf(m, fmaxf(acc[r] + bv, 0.0f));
-    }
-    run = fmaxf(run, m);
-  } else {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      y[(r0 + r) * COUT + c] = fmaxf(acc[r] + bv, 0.0f);
+      for (int h = 0; h < NH; ++h) {
+        fma4(acc[i][h], av.x, bv[0][h]);
+        fma4(acc[i][h], av.y, bv[1][h]);
+        fma4(acc[i][h], av.z, bv[2][h]);
+        fma4(acc[i][h], av.w, bv[3][h]);
+      }
     }
   }
 }
 
-// kChunked (k > kRows): the rows in chunks of kRows; otherwise all k at once.
-template <int F1, int F2, int F3, bool kChunked>
-__global__ void __launch_bounds__(kThreads)
-sa_mlp_max_kernel(const float* __restrict__ g, int K, int C, int c_pad,
+// The same with B = w[:, n0 : n0 + 128] streamed from device memory in
+// depth chunks of kKC through the ring, rows past k_valid zero; K % kKC ==
+// 0.  The ring is free again when it returns.
+__device__ __forceinline__ void product_streamed(
+    float (&acc)[kRM][2][4], const float* A, int lda,
+    const float* __restrict__ w, int ldw, int n0, int K, int k_valid,
+    float* ring) {
+  auto stage = [&](int kc) {
+    float* dst = ring + (kc % kStages) * kKC * 128;
+    for (int e = threadIdx.x; e < kKC * 32; e += kThreads) {
+      const int row = kc * kKC + e / 32;
+      const bool ok = row < k_valid;
+      mma::cp_async16(dst + (e / 32) * 128 + (e % 32) * 4,
+                      ok ? w + static_cast<int64_t>(row) * ldw + n0 +
+                               (e % 32) * 4
+                         : w,
+                      ok ? 16 : 0);
+    }
+  };
+  const int c4 = (threadIdx.x % kGroups) * 4;
+  stage(0);
+  mma::cp_async_commit();
+  for (int kc = 0; kc < K / kKC; ++kc) {
+    mma::cp_async_wait<0>();
+    __syncthreads();   // chunk kc in place; chunk kc - 1's buffer free
+    if (kc + 1 < K / kKC) stage(kc + 1);
+    mma::cp_async_commit();
+    product<2>(acc, A + kc * kKC, lda,
+               ring + (kc % kStages) * kKC * 128 + c4, 128, kKC);
+  }
+  __syncthreads();
+}
+
+template <int NH>
+__device__ __forceinline__ void zero(float (&acc)[kRM][NH][4]) {
+#pragma unroll
+  for (int i = 0; i < kRM; ++i) {
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][h][q] = 0.0f;
+    }
+  }
+}
+
+// H[row][n] = relu(acc + b[n]) for the thread's rows and columns (4 cg +
+// 64 h + q), as float4.
+template <int NH>
+__device__ __forceinline__ void store_relu(const float (&acc)[kRM][NH][4],
+                                           float* H, int ldh,
+                                           const float* __restrict__ b) {
+  const int rg = threadIdx.x / kGroups, c = (threadIdx.x % kGroups) * 4;
+#pragma unroll
+  for (int h = 0; h < NH; ++h) {
+    const float4 bv = make_float4(b[c + 64 * h], b[c + 64 * h + 1],
+                                  b[c + 64 * h + 2], b[c + 64 * h + 3]);
+#pragma unroll
+    for (int i = 0; i < kRM; ++i) {
+      *reinterpret_cast<float4*>(H + (rg + kGroups * i) * ldh + c + 64 * h) =
+          make_float4(fmaxf(acc[i][h][0] + bv.x, 0.0f),
+                      fmaxf(acc[i][h][1] + bv.y, 0.0f),
+                      fmaxf(acc[i][h][2] + bv.z, 0.0f),
+                      fmaxf(acc[i][h][3] + bv.w, 0.0f));
+    }
+  }
+}
+
+// Persistent blocks that walk units of kM rows: two centers of k <= 64
+// rows (a slot of 64 rows each), or one chunk of kM of a center's k > 64
+// rows.  A thread holds an 8 x 4 (64-column layers) or 8 x 8 (128-column
+// passes) outer product.  A unit's rows are copied by cp.async as soon as
+// the previous unit's first layer has read its own, so the copy runs under
+// the other two layers.  The max over k runs in registers across a
+// center's chunks, then across the row groups by a shuffle and shared
+// memory.
+template <int F1, int F2, int F3>
+__global__ void __launch_bounds__(kThreads, 1)
+sa_mlp_f32_kernel(const float* __restrict__ g, int HS, int K, int C,
                   const float* __restrict__ w1, const float* __restrict__ b1,
                   const float* __restrict__ w2, const float* __restrict__ b2,
                   const float* __restrict__ w3, const float* __restrict__ b3,
                   float* __restrict__ out) {
+  constexpr bool kStream = F3 > 128;
+  constexpr int kNH1 = F1 / 64, kNH2 = F2 / 64;     // 4-column runs a thread
+  constexpr int kP3 = F3 / 128;                     // 128-column passes
+  static_assert(!kStream || (F1 == 128 && F2 == 128), "streamed widths");
   extern __shared__ float4 smem4[];
-  float* x0 = reinterpret_cast<float*>(smem4);  // (kRows, c_pad)
-  float* h1 = x0 + kRows * c_pad;               // (kRows, F1)
-  float* h2 = h1 + kRows * F1;                  // (kRows, F2)
-  const int64_t center = blockIdx.x;
-  float run = -CUDART_INF_F;  // this thread's column over its row groups
-  // chunks of kRows rows; layer 1 reads x0 two barriers before the next
-  // chunk overwrites it, and each layer's output likewise
-  for (int c0 = 0; c0 < (kChunked ? K : 1); c0 += kRows) {
-    const int kr = kChunked ? min(kRows, K - c0) : K;
-    const float* gc = g + (center * K + c0) * C;
-    for (int idx = threadIdx.x; idx < kRows * c_pad; idx += kThreads) {
-      const int r = idx / c_pad, i = idx % c_pad;
-      x0[idx] = (r < kr && i < C) ? gc[r * C + i] : 0.0f;
+  const int cp = c_pad_of<F3>(C);
+  const int ldx = kStream ? cp + 4 : cp;
+  float* sw = reinterpret_cast<float*>(smem4);
+  float* sw1 = sw;                                  // (cp, F1), level 1
+  float* sw2 = kStream ? sw : sw1 + cp * F1;        // (F1, F2)
+  float* sw3 = sw2 + F1 * F2;                       // (F2, F3), or the ring
+  float* sx = sw3 + (kStream ? kRing : F2 * F3);    // (kM, ldx)
+  float* sh1 = sx + kM * ldx;                       // (kM, F1 + 4)
+  // level 2: H2 and then the maxima over H1, one hidden layer at a time
+  float* sh2 = kStream ? sh1 : sh1 + kM * (F1 + 4);
+  float* red = kStream ? sh1 : sh2 + kM * (F2 + 4); // (kWarps, kNS, F3)
+
+  // the staged weights, once: w1's rows past C zero
+  for (int e = threadIdx.x; !kStream && e < cp * F1 / 4; e += kThreads) {
+    reinterpret_cast<float4*>(sw1)[e] =
+        e / (F1 / 4) < C ? reinterpret_cast<const float4*>(w1)[e]
+                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  for (int e = threadIdx.x; e < F1 * F2 / 4; e += kThreads) {
+    reinterpret_cast<float4*>(sw2)[e] = reinterpret_cast<const float4*>(w2)[e];
+  }
+  for (int e = threadIdx.x; !kStream && e < F2 * F3 / 4; e += kThreads) {
+    reinterpret_cast<float4*>(sw3)[e] = reinterpret_cast<const float4*>(w3)[e];
+  }
+
+  const int sl = K <= kRows ? kRows : kM;           // rows a slot
+  const int ns = K <= kRows ? kNS : 1;              // centers a unit
+  const int nch = (K + sl - 1) / sl;
+  const int ngroups = (HS + ns - 1) / ns;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // cp.async of a unit's (kM, cp) rows into sx, zero past C, k and HS
+  auto copy_rows = [&](int grp, int ch) {
+    auto src = [&](int r, bool& ok) -> const float* {
+      const int s = r / sl, row = ch * sl + r % sl;
+      const int64_t center = static_cast<int64_t>(grp) * ns + s;
+      ok = s < ns && center < HS && row < K;
+      return ok ? g + (center * K + row) * C : g;
+    };
+    if (cp >= 32) {            // a warp a row, its lanes over the channels
+      for (int r = warp; r < kM; r += kWarps) {
+        bool ok;
+        const float* row = src(r, ok);
+        for (int c = lane; c < cp; c += 32) {
+          const bool in = ok && c < C;
+          cp_async4(sx + r * ldx + c, in ? row + c : g, in ? 4 : 0);
+        }
+      }
+    } else {
+      for (int e = threadIdx.x; e < kM * cp; e += kThreads) {
+        const int r = e / cp, c = e % cp;
+        bool ok;
+        const float* row = src(r, ok);
+        const bool in = ok && c < C;
+        cp_async4(sx + r * ldx + c, in ? row + c : g, in ? 4 : 0);
+      }
+    }
+    mma::cp_async_commit();
+  };
+
+  const int rg = threadIdx.x / kGroups, c4 = (threadIdx.x % kGroups) * 4;
+  float run[kP3][kNS][8];
+  auto reset = [&] {
+#pragma unroll
+    for (int p = 0; p < kP3; ++p) {
+#pragma unroll
+      for (int s = 0; s < kNS; ++s) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) run[p][s][j] = -CUDART_INF_F;
+      }
+    }
+  };
+  reset();
+
+  int grp = blockIdx.x, ch = 0;
+  if (grp < ngroups) copy_rows(grp, ch);
+  while (grp < ngroups) {
+    const bool last = ch + 1 == nch;
+    const int next_grp = last ? grp + gridDim.x : grp;
+    const int next_ch = last ? 0 : ch + 1;
+    mma::cp_async_wait<0>();
+    __syncthreads();        // the rows (and, first, the weights) in place
+
+    {   // H1 = relu(X @ w1 + b1)
+      float acc[kRM][kNH1][4];
+      zero(acc);
+      if constexpr (kStream) {
+        product_streamed(acc, sx, ldx, w1, F1, 0, cp, C, sw3);
+      } else {
+        product<kNH1>(acc, sx, ldx, sw1 + c4, F1, cp);
+        __syncthreads();
+      }
+      // every thread is done with the rows: the next unit's copy runs
+      // under the next two layers
+      if (next_grp < ngroups) copy_rows(next_grp, next_ch);
+      store_relu<kNH1>(acc, sh1, F1 + 4, b1);
     }
     __syncthreads();
-    layer<F1, false>(x0, C, c_pad, w1, b1, h1, kr, run);
+    {   // H2 = relu(H1 @ w2 + b2)
+      float acc[kRM][kNH2][4];
+      zero(acc);
+      product<kNH2>(acc, sh1, F1 + 4, sw2 + c4, F2, F1);
+      if (kStream) __syncthreads();     // H2 goes over H1
+      store_relu<kNH2>(acc, sh2, F2 + 4, b2);
+    }
     __syncthreads();
-    layer<F2, false>(h1, F1, F1, w2, b2, h2, kr, run);
-    __syncthreads();
-    layer<F3, true>(h2, F2, F2, w3, b3, nullptr, kr, run);
-  }
-  float* red = x0;  // (kThreads / F3, F3) group maxima; x0 is free now
-  red[threadIdx.x] = run;  // (group, c) = threadIdx.x
-  __syncthreads();
-  constexpr int kGroups = kThreads / F3;
-  for (int c = threadIdx.x; c < F3; c += kThreads) {
-    float m = red[c];
+
+    // layer 3 and the max over the unit's valid rows of each slot
+    const int64_t c0 = static_cast<int64_t>(grp) * ns;
+    const int nv0 = c0 < HS ? min(sl, K - ch * sl) : 0;
+    const int nv1 = ns > 1 && c0 + 1 < HS ? min(sl, K - ch * sl) : 0;
 #pragma unroll
-    for (int gi = 1; gi < kGroups; ++gi) m = fmaxf(m, red[gi * F3 + c]);
-    out[center * F3 + c] = m;
+    for (int p = 0; p < kP3; ++p) {
+      float acc[kRM][2][4];
+      zero(acc);
+      if constexpr (kStream) {
+        product_streamed(acc, sh2, F2 + 4, w3, F3, 128 * p, F2, F2, sw3);
+      } else {
+        product<2>(acc, sh2, F2 + 4, sw3 + 128 * p + c4, F3, F2);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float bv = b3[128 * p + c4 + 64 * h + q];
+#pragma unroll
+          for (int i = 0; i < kRM; ++i) {
+            const int r = rg + kGroups * i;
+            const bool second = ns > 1 && i >= kRM / 2;   // slot 1's rows
+            const int rs = second ? r - kRows : r;
+            if (rs >= (second ? nv1 : nv0)) continue;
+            const float v = fmaxf(acc[i][h][q] + bv, 0.0f);
+            if (second) {
+              run[p][1][4 * h + q] = fmaxf(run[p][1][4 * h + q], v);
+            } else {
+              run[p][0][4 * h + q] = fmaxf(run[p][0][4 * h + q], v);
+            }
+          }
+        }
+      }
+    }
+
+    if (last) {   // the unit's centers are done: the max over row groups
+      // (level 2's maxima go over H2, read by the last product, which ends
+      // on a barrier)
+#pragma unroll
+      for (int p = 0; p < kP3; ++p) {
+#pragma unroll
+        for (int s = 0; s < kNS; ++s) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            float v = run[p][s][j];
+            v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 16));
+            if (lane < 16) {
+              red[(warp * kNS + s) * F3 + 128 * p + c4 + 64 * (j / 4) +
+                  j % 4] = v;
+            }
+          }
+        }
+      }
+      reset();
+      __syncthreads();
+      for (int e = threadIdx.x; e < ns * F3; e += kThreads) {
+        const int s = e / F3, col = e % F3;
+        if (c0 + s >= HS) continue;
+        float m = red[s * F3 + col];
+#pragma unroll
+        for (int w = 1; w < kWarps; ++w) {
+          m = fmaxf(m, red[(w * kNS + s) * F3 + col]);
+        }
+        out[(c0 + s) * F3 + col] = m;
+      }
+    }
+    grp = next_grp;
+    ch = next_ch;
   }
 }
+
+}  // namespace f32
 
 template <int F1, int F2, int F3>
 int launch_f32(const void* g, int HS, int K, int C, const void* const* p,
                float* out, cudaStream_t stream) {
-  const int c_pad = (C + 3) / 4 * 4;
-  // the group maxima reuse x0, which must hold them
-  if (kRows * c_pad < kThreads) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * kRows * (c_pad + F1 + F2);
-  auto kernel = K > kRows ? sa_mlp_max_kernel<F1, F2, F3, true>
-                          : sa_mlp_max_kernel<F1, F2, F3, false>;
-  cudaError_t err = cudaFuncSetAttribute(
+  const size_t smem = sizeof(float) * f32::smem_floats<F1, F2, F3>(C);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < 6; i += 2) {
+    if (reinterpret_cast<uintptr_t>(p[i]) % 16 != 0) {
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    }
+  }
+  auto kernel = f32::sa_mlp_f32_kernel<F1, F2, F3>;
+  // once per instantiation, so that a launch under CUDA-graph capture makes
+  // no other attribute call
+  static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(kMaxSmem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, smem);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int ns = K <= kRows ? f32::kNS : 1;
+  const int64_t groups = (static_cast<int64_t>(HS) + ns - 1) / ns;
+  const int64_t slots = static_cast<int64_t>(sms) * per_sm;
+  const int grid = static_cast<int>(groups < slots ? groups : slots);
   auto f = [&](int i) { return static_cast<const float*>(p[i]); };
-  kernel<<<HS, kThreads, smem, stream>>>(static_cast<const float*>(g), K, C,
-                                          c_pad, f(0), f(1), f(2), f(3), f(4),
-                                          f(5), out);
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const float*>(g), HS,
+                                           K, C, f(0), f(1), f(2), f(3),
+                                           f(4), f(5), out);
   return static_cast<int>(cudaGetLastError());
 }
 

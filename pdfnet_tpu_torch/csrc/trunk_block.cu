@@ -16,7 +16,7 @@
 // strided 3x3 at the even rows and columns directly (the TPU kernel computes
 // it at full resolution and subsamples: the same sums).
 //
-// Two bodies share this file.
+// Three bodies share this file.
 //
 // bf16 at stride 1 (bottleneck_tc_kernel, the serving path's 8 blocks a
 // step): the products on the tensor cores.  One block of 8 warps per (image,
@@ -43,11 +43,51 @@
 // stride-1 block the trunk routes); ops/trunk.check_tc_shape refuses the
 // rest by name.
 //
-// float32 at either stride, and bf16 at stride 2 (bottleneck_kernel, the
-// first body, on no path in bf16): float32 FMAs on the CUDA cores, y1/y2 as
-// float32 in shared memory, 64 x 128 tiles, each thread 4 rows x 8 columns,
-// depth staged 32 at a time.  A float32 product on the tensor cores would
-// be TF32, and the float32 contract is true float32.
+// float32 at stride 1 (bottleneck_f32_kernel, the float32 serving path's 8
+// blocks a step): float32 FMAs on the CUDA cores, in true float32 (a
+// float32 product on the tensor cores would be TF32, and 3xTF32 splits
+// another rounding).  Its bound is the FP32 rate: ~10.3 GFLOP a call at
+// layer2_1 and layer3_1 at batch 8, 0.153 ms at 67 TFLOP/s, far above the
+// map's bytes.  The design against that bound:
+//   - Tiles sized to fill the 132 SMs in one wave (ops/trunk.f32_plan, the
+//     caller's choice): TR output rows by TW columns, y1 (the halo'd input
+//     rows and columns, zero outside the map) and y2 in shared memory as
+//     float32, one block of 256 threads an SM.  At layer3 a tile's work is
+//     spread over a 2-block thread-block cluster: each block computes half
+//     of y1's and y2's channels and half of the output's, and takes the
+//     peer's half of y1 and of y2 from its shared memory (distributed
+//     shared memory) in one copy after each product, so no halo row is
+//     computed twice and the tile needs no more than one SM's shared
+//     memory.  ResNet-50 at 384x384, batch 8: layer2 TR = 3, full width
+//     (128 blocks; conv1 on 5 input rows per 3, +16 % operations); layer3
+//     TR = 3 in clusters of 2 (128 blocks; +16 %).  The fallback of
+//     narrower tiles with their halo columns recomputed costs more
+//     (f32_plan's count: TR = 2 x TW = 12 at layer3, 192 blocks and +31 %
+//     operations) and is what f32_plan takes where clusters do not divide
+//     the channels.
+//   - Each product is a pass of 16 * RM rows x 128 columns: 16 row groups x
+//     16 column groups of threads, each thread an RM x 8 outer product (rows
+//     rg + 16 i, columns two runs of 4, 64 apart, so that a quarter warp's
+//     float4 reads of a weight row touch 32 distinct banks), A and B read
+//     as float4.  RM is sized to the product's real row count (f32::rm_of:
+//     240 conv1 rows as 2 x 8, 144 3x3 rows as 9; 120 as 8, 72 as 5), so
+//     that no pass runs a quarter or half empty; at most 9, which measured
+//     a little faster than 12 (fewer registers).  Warps of 8 x 4 thread
+//     groups (fewer shared-memory wavefronts) and register double-buffered
+//     fragments measured slower.
+//   - Weight chunks (depth 16, 128 columns) and, for conv1, the x rows are
+//     staged by 16-byte cp.async into a 2-stage ring: the next chunk loads
+//     while one multiplies.  The 3x3 reads y1 in place at its shifted taps,
+//     conv3 reads y2 in place; each pixel's channels are padded by 4 floats
+//     so that neighbouring rows fall in other banks.
+//   - Takes Cin and Cw multiples of 128 and no projection (every stride-1
+//     block the trunk routes); ops/trunk.check_f32_shape refuses the rest
+//     by name.
+//
+// float32 and bf16 at stride 2 (bottleneck_kernel, the first body, routed
+// by neither package): float32 FMAs on the CUDA cores, y1/y2 as float32 in
+// shared memory, 64 x 128 tiles, each thread 4 rows x 8 columns, depth
+// staged 32 at a time.
 //
 // Bound on the H100 (NVIDIA H100 80GB HBM3, 700 W): at the main path's
 // shapes (layer2/3 stride 1, batch 8) ~10.3 GFLOP a block at the bf16
@@ -59,6 +99,7 @@
 // there: each block streams every weight chunk from L2 once per 48-row
 // pass, 1.9 MB (layer2) and 2.7 MB (layer3) a block, ~250 MB a call.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -342,21 +383,6 @@ int launch(const void* x, const void* w1, const void* b1, const void* w2,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(int stride, int project, const void* x, const void* w1,
-             const void* b1, const void* w2, const void* b2, const void* w3,
-             const void* b3, const void* wp, const void* bp, void* out, int B,
-             const Shape& s, cudaStream_t st) {
-  if (stride == 2) {
-    return launch<T, 2, true>(x, w1, b1, w2, b2, w3, b3, wp, bp, out, B, s,
-                              st);
-  }
-  return project ? launch<T, 1, true>(x, w1, b1, w2, b2, w3, b3, wp, bp, out,
-                                      B, s, st)
-                 : launch<T, 1, false>(x, w1, b1, w2, b2, w3, b3, wp, bp, out,
-                                       B, s, st);
-}
-
 // ---- bf16, stride 1: the tensor-core body --------------------------------
 
 namespace tc {
@@ -623,6 +649,379 @@ bool aligned16(const void* p) {
 
 }  // namespace tc
 
+// ---- float32, stride 1: the CUDA-core body --------------------------------
+
+namespace f32 {
+
+constexpr int kThreads = 256;        // 16 row groups x 16 column groups
+constexpr int kGroups = 16;          // column groups
+constexpr int kRowGroups = kThreads / kGroups;
+constexpr int kNT = 128;             // columns a pass: 16 groups x 8
+constexpr int kKC = 16;              // depth of one staged chunk
+constexpr int kStages = 2;           // chunks in the ring
+constexpr int kPadC = 4;             // floats after each pixel's channels
+constexpr int kAStride = kKC + 4;    // staged x row
+constexpr int kMaxRM = 9;            // rows a thread in one pass, at most
+constexpr int kAStage = kRowGroups * kMaxRM * kAStride;   // one staged x chunk
+constexpr int kBStage = kKC * kNT;                     // one weight chunk
+constexpr int kXCopies =                 // x-row copies a thread
+    (kRowGroups * kMaxRM * (kKC / 4) + kThreads - 1) / kThreads;
+
+// Passes of at most 16 * kMaxRM rows for M rows, and the rows a thread in
+// each (RM, one of 4, 5, 6, 8, 9).  Mirrored by ops/trunk.f32_pass_rows.
+__host__ __device__ __forceinline__ int passes_of(int M) {
+  return (M + kRowGroups * kMaxRM - 1) / (kRowGroups * kMaxRM);
+}
+__host__ __device__ __forceinline__ int rm_of(int M) {
+  const int rows = kRowGroups * passes_of(M);
+  const int need = (M + rows - 1) / rows;
+  return need <= 4 ? 4 : need <= 6 ? need : need <= 8 ? 8 : 9;
+}
+
+// Shared memory of a TR x TW tile.  Mirrored by ops/trunk.f32_smem_bytes.
+__host__ __device__ __forceinline__ int y2_floats(int TR, int TW, int Cw) {
+  const int y2 = TR * TW * (Cw + kPadC);
+  return y2 > kStages * kAStage ? y2 : kStages * kAStage;
+}
+__host__ __forceinline__ size_t smem_bytes(int TR, int TW, int Cw) {
+  return sizeof(float) *
+         (static_cast<size_t>(TR + 2) * (TW + 2) * (Cw + kPadC) +
+          y2_floats(TR, TW, Cw) + kStages * kBStage);
+}
+
+// The thread's row group (rows rg + 16 i) and column group (columns 4 cg
+// + 0..3 and + 64).
+__device__ __forceinline__ int row_group() { return threadIdx.x / kGroups; }
+__device__ __forceinline__ int col_group() { return threadIdx.x % kGroups; }
+
+template <int N>
+struct Int {
+  static constexpr int value = N;
+};
+
+// f(Int<RM>) for the rows a thread of rm_of.
+template <typename F>
+__device__ __forceinline__ void with_rm(int rm, F f) {
+  switch (rm) {
+    case 4: f(Int<4>{}); break;
+    case 5: f(Int<5>{}); break;
+    case 6: f(Int<6>{}); break;
+    case 8: f(Int<8>{}); break;
+    default: f(Int<9>{}); break;
+  }
+}
+
+__device__ __forceinline__ void fma4x8(float (&acc)[8], float a,
+                                       const float4& b0, const float4& b1) {
+  acc[0] = fmaf(a, b0.x, acc[0]);
+  acc[1] = fmaf(a, b0.y, acc[1]);
+  acc[2] = fmaf(a, b0.z, acc[2]);
+  acc[3] = fmaf(a, b0.w, acc[3]);
+  acc[4] = fmaf(a, b1.x, acc[4]);
+  acc[5] = fmaf(a, b1.y, acc[5]);
+  acc[6] = fmaf(a, b1.z, acc[6]);
+  acc[7] = fmaf(a, b1.w, acc[7]);
+}
+
+// acc = A (the thread's RM rows, rg + 16 i) @ w[:, n0 : n0 + kNT], the
+// depth in nk chunks of kKC, w row-major (nk * kKC, ldw).  stage_a(kc)
+// starts the cp.async copies of A's chunk kc (or nothing); row_a(i, kc) is
+// the thread's row i of chunk kc in shared memory (kKC floats, 16-byte
+// aligned).  Weight chunks go through bs, a ring of kStages, kStages - 1 of
+// them in flight while one multiplies.
+template <int RM, typename StageA, typename RowA>
+__device__ __forceinline__ void gemm_pass(float (&acc)[RM][8],
+                                          const float* __restrict__ w,
+                                          int ldw, int n0, int nk, float* bs,
+                                          StageA stage_a, RowA row_a) {
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  }
+  auto stage_b = [&](int kc) {
+    float* dst = bs + (kc % kStages) * kBStage;
+    const float* src = w + static_cast<int64_t>(kc) * kKC * ldw + n0;
+    for (int e = threadIdx.x; e < kKC * kNT / 4; e += kThreads) {
+      const int r = e / (kNT / 4), v = e % (kNT / 4);
+      mma::cp_async16(dst + r * kNT + v * 4,
+                      src + static_cast<int64_t>(r) * ldw + v * 4, 16);
+    }
+  };
+  for (int kc = 0; kc < kStages - 1; ++kc) {
+    if (kc < nk) {
+      stage_b(kc);
+      stage_a(kc);
+    }
+    mma::cp_async_commit();
+  }
+  const int cg4 = col_group() * 4;
+  for (int kc = 0; kc < nk; ++kc) {
+    mma::cp_async_wait<kStages - 2>();
+    // chunk kc is in place for every thread, and every thread is done with
+    // chunk kc - 1, whose buffer the next copy fills
+    __syncthreads();
+    if (kc + kStages - 1 < nk) {
+      stage_b(kc + kStages - 1);
+      stage_a(kc + kStages - 1);
+    }
+    mma::cp_async_commit();
+    const float* b = bs + (kc % kStages) * kBStage + cg4;
+    const float* a[RM];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) a[i] = row_a(i, kc);
+#pragma unroll
+    for (int kk = 0; kk < kKC; kk += 4) {
+      float4 bv[4][2];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        bv[t][0] = *reinterpret_cast<const float4*>(b + (kk + t) * kNT);
+        bv[t][1] = *reinterpret_cast<const float4*>(b + (kk + t) * kNT + 64);
+      }
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const float4 av = *reinterpret_cast<const float4*>(a[i] + kk);
+        fma4x8(acc[i], av.x, bv[0][0], bv[0][1]);
+        fma4x8(acc[i], av.y, bv[1][0], bv[1][1]);
+        fma4x8(acc[i], av.z, bv[2][0], bv[2][1]);
+        fma4x8(acc[i], av.w, bv[3][0], bv[3][1]);
+      }
+    }
+  }
+  __syncthreads();  // the ring is free for the next pass
+}
+
+// f(m, j0, v) for the thread's rows m = m0 + rg + 16 i < M and its two runs
+// of 4 columns (j0 = 0 and 64 within the pass), v the 4 accumulators.
+template <int RM, typename F>
+__device__ __forceinline__ void for_each_run(const float (&acc)[RM][8],
+                                             int m0, int M, F f) {
+  const int rg = row_group();
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int m = m0 + rg + kRowGroups * i;
+    if (m >= M) continue;
+    f(m, 0, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+    f(m, 64, make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
+  }
+}
+
+__device__ __forceinline__ float4 relu_bias(float4 v, const float* b) {
+  return make_float4(fmaxf(v.x + b[0], 0.0f), fmaxf(v.y + b[1], 0.0f),
+                     fmaxf(v.z + b[2], 0.0f), fmaxf(v.w + b[3], 0.0f));
+}
+
+// dst[p * CSt + c0 .. + n) <- src's, pixels p < npix, through distributed
+// shared memory: the channels [c0, c0 + n) the cluster's peer computed.
+__device__ __forceinline__ void take_peer(float* dst, const float* src,
+                                          int npix, int CSt, int c0, int n) {
+  const int vec = n / 4;
+  for (int e = threadIdx.x; e < npix * vec; e += kThreads) {
+    const int off = (e / vec) * CSt + c0 + (e % vec) * 4;
+    *reinterpret_cast<float4*>(dst + off) =
+        *reinterpret_cast<const float4*>(src + off);
+  }
+}
+
+// CS: blocks a cluster, each computing Cw / CS of y1's and y2's channels
+// and Cout / CS of the output's.  Grid (tiles * CS, B); a tile is TR
+// output rows x TW columns, row-major over the map.
+template <int CS>
+__global__ void __launch_bounds__(kThreads, 1)
+bottleneck_f32_kernel(const float* __restrict__ x,
+                      const float* __restrict__ w1,
+                      const float* __restrict__ b1,
+                      const float* __restrict__ w2,
+                      const float* __restrict__ b2,
+                      const float* __restrict__ w3,
+                      const float* __restrict__ b3, float* __restrict__ out,
+                      Shape s, int TW) {
+  extern __shared__ float4 smem4[];
+  const int Wp = TW + 2, CSt = s.Cw + kPadC;
+  float* y1 = reinterpret_cast<float*>(smem4);      // (TR + 2, Wp, CSt)
+  float* y2 = y1 + (s.TR + 2) * Wp * CSt;           // (TR * TW, CSt)
+  float* as = y2;                   // x chunks, while conv1 runs
+  float* bs = y2 + y2_floats(s.TR, TW, s.Cw);       // kStages x kBStage
+
+  const int rank = CS > 1 ? static_cast<int>(blockIdx.x % CS) : 0;
+  const int tile = blockIdx.x / CS;
+  const int tiles_w = (s.W + TW - 1) / TW;
+  const int r0 = (tile / tiles_w) * s.TR, c0 = (tile % tiles_w) * TW;
+  const int b = blockIdx.y;
+  const int rg = row_group();
+  const float* xb = x + static_cast<int64_t>(b) * s.H * s.W * s.Cin;
+  const int nw = s.Cw / CS, nw0 = rank * nw;        // y1's and y2's columns
+  const int no = s.Cout / CS, no0 = rank * no;      // the output's
+
+  {
+    float4* p = reinterpret_cast<float4*>(y1);
+    const int n = (s.TR + 2) * Wp * CSt / 4;
+    for (int e = threadIdx.x; e < n; e += kThreads) {
+      p[e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
+  __syncthreads();
+
+  // ---- y1 = relu(x @ w1 + b1) on the tile's halo'd window inside the map
+  const int g_lo = max(r0 - 1, 0), g_hi = min(r0 + s.TR + 1, s.H);
+  const int x_lo = max(c0 - 1, 0), x_hi = min(c0 + TW + 1, s.W);
+  const int Wi = x_hi - x_lo;
+  const int M1 = (g_hi - g_lo) * Wi;
+  const int rm1 = rm_of(M1);
+  for (int p = 0; p < passes_of(M1); ++p) {
+    with_rm(rm1, [&](auto rmc) {
+      constexpr int RM = decltype(rmc)::value;
+      const int m0 = p * kRowGroups * RM;
+      // the x row (offset in the image) of each slot this thread copies
+      int xoff[kXCopies];
+#pragma unroll
+      for (int j = 0; j < kXCopies; ++j) {
+        const int e = threadIdx.x + j * kThreads;
+        const int m = m0 + e / (kKC / 4);
+        xoff[j] = e < kRowGroups * RM * (kKC / 4) && m < M1
+                      ? ((g_lo + m / Wi) * s.W + x_lo + m % Wi) * s.Cin +
+                            (e % (kKC / 4)) * 4
+                      : -1;
+      }
+      auto stage_x = [&](int kc) {
+        float* dst = as + (kc % kStages) * kAStage;
+#pragma unroll
+        for (int j = 0; j < kXCopies; ++j) {
+          const int e = threadIdx.x + j * kThreads;
+          if (e >= kRowGroups * RM * (kKC / 4)) continue;
+          const bool ok = xoff[j] >= 0;
+          mma::cp_async16(dst + (e / (kKC / 4)) * kAStride + (e % (kKC / 4)) * 4,
+                          ok ? xb + xoff[j] + kc * kKC : x, ok ? 16 : 0);
+        }
+      };
+      auto row_x = [&](int i, int kc) -> const float* {
+        return as + (kc % kStages) * kAStage + (rg + kRowGroups * i) * kAStride;
+      };
+      float acc[RM][8];
+      for (int n0 = nw0; n0 < nw0 + nw; n0 += kNT) {
+        gemm_pass<RM>(acc, w1, s.Cw, n0, s.Cin / kKC, bs, stage_x, row_x);
+        for_each_run<RM>(acc, m0, M1, [&](int m, int j0, float4 v) {
+          const int n = n0 + col_group() * 4 + j0;
+          const int pix = (g_lo + m / Wi - (r0 - 1)) * Wp +
+                          (x_lo + m % Wi - (c0 - 1));
+          *reinterpret_cast<float4*>(y1 + pix * CSt + n) = relu_bias(v, b1 + n);
+        });
+      }
+    });
+  }
+  if constexpr (CS > 1) {
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();             // every block's half of y1 is in place
+    take_peer(y1, cluster.map_shared_rank(y1, rank ^ 1), (s.TR + 2) * Wp,
+              CSt, (rank ^ 1) * nw, nw);
+  }
+  __syncthreads();
+
+  // ---- y2 = relu(conv3x3(y1) + b2) at the tile's output pixels
+  const int rows = min(s.TR, s.H - r0), cols = min(TW, s.W - c0);
+  const int M2 = rows * cols;
+  const int rm2 = rm_of(M2);
+  for (int p = 0; p < passes_of(M2); ++p) {
+    with_rm(rm2, [&](auto rmc) {
+      constexpr int RM = decltype(rmc)::value;
+      const int m0 = p * kRowGroups * RM;
+      int base[RM];                     // the row's y1 pixel at tap (0, 0)
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const int m = min(m0 + rg + kRowGroups * i, M2 - 1);
+        base[i] = ((m / cols) * Wp + m % cols) * CSt;
+      }
+      auto row_y1 = [&](int i, int kc) -> const float* {
+        const int k = kc * kKC, tap = k / s.Cw;
+        return y1 + base[i] + ((tap / 3) * Wp + tap % 3) * CSt + k % s.Cw;
+      };
+      auto no_stage = [](int) {};
+      float acc[RM][8];
+      for (int n0 = nw0; n0 < nw0 + nw; n0 += kNT) {
+        gemm_pass<RM>(acc, w2, s.Cw, n0, 9 * s.Cw / kKC, bs, no_stage,
+                      row_y1);
+        for_each_run<RM>(acc, m0, M2, [&](int m, int j0, float4 v) {
+          const int n = n0 + col_group() * 4 + j0;
+          *reinterpret_cast<float4*>(y2 + m * CSt + n) = relu_bias(v, b2 + n);
+        });
+      }
+    });
+  }
+  if constexpr (CS > 1) {
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();             // every block's half of y2 is in place
+    take_peer(y2, cluster.map_shared_rank(y2, rank ^ 1), M2, CSt,
+              (rank ^ 1) * nw, nw);
+    cluster.sync();             // and read: no block leaves while its
+                                // shared memory is read
+  } else {
+    __syncthreads();
+  }
+
+  // ---- out = relu(y2 @ w3 + b3 + x)
+  const int rm3 = rm2;
+  for (int p = 0; p < passes_of(M2); ++p) {
+    with_rm(rm3, [&](auto rmc) {
+      constexpr int RM = decltype(rmc)::value;
+      const int m0 = p * kRowGroups * RM;
+      auto row_y2 = [&](int i, int kc) -> const float* {
+        return y2 + min(m0 + rg + kRowGroups * i, M2 - 1) * CSt + kc * kKC;
+      };
+      auto no_stage = [](int) {};
+      float acc[RM][8];
+      for (int n0 = no0; n0 < no0 + no; n0 += kNT) {
+        gemm_pass<RM>(acc, w3, s.Cout, n0, s.Cw / kKC, bs, no_stage, row_y2);
+        for_each_run<RM>(acc, m0, M2, [&](int m, int j0, float4 v) {
+          const int n = n0 + col_group() * 4 + j0;
+          const int64_t pix =
+              (static_cast<int64_t>(b) * s.H + r0 + m / cols) * s.W + c0 +
+              m % cols;
+          const float4 sc = *reinterpret_cast<const float4*>(x + pix * s.Cin + n);
+          const float4 y = make_float4(v.x + b3[n], v.y + b3[n + 1],
+                                       v.z + b3[n + 2], v.w + b3[n + 3]);
+          *reinterpret_cast<float4*>(out + pix * s.Cout + n) =
+              make_float4(fmaxf(y.x + sc.x, 0.0f), fmaxf(y.y + sc.y, 0.0f),
+                          fmaxf(y.z + sc.z, 0.0f), fmaxf(y.w + sc.w, 0.0f));
+        });
+      }
+    });
+  }
+}
+
+template <int CS>
+int launch(const float* x, const float* w1, const float* b1, const float* w2,
+           const float* b2, const float* w3, const float* b3, float* out,
+           int B, const Shape& s, int TW, cudaStream_t stream) {
+  auto kernel = bottleneck_f32_kernel<CS>;
+  // once per instantiation, so that a launch under CUDA-graph capture makes
+  // no other runtime call
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kMaxSmem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int tiles = ((s.H + s.TR - 1) / s.TR) * ((s.W + TW - 1) / TW);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * CS, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem_bytes(s.TR, TW, s.Cw);
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = CS;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = CS > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, x, w1, b1, w2, b2,
+                                             w3, b3, out, s, TW);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace f32
+
 }  // namespace
 
 // x (B, H, W, Cin) NHWC of float32 (bf16 == 0) or bfloat16 (bf16 == 1);
@@ -633,16 +1032,19 @@ bool aligned16(const void* p) {
 // bf16 at stride 1 runs the tensor-core body, which also needs Cin % 64 ==
 // 0, Cw % 128 == 0, no projection and 16-byte aligned x, weights and out,
 // and takes rows_per_block output rows a block (its shared memory must
-// fit).
-// The other bodies ignore rows_per_block: 2 output rows a block at stride 1
-// (1 if that does not fit in shared memory), 1 at stride 2.
+// fit).  float32 at stride 1 runs its CUDA-core body, which needs Cin and
+// Cw multiples of 128, no projection, 16-byte aligned x, weights and out,
+// and takes tiles of rows_per_block rows x tile_w columns on clusters of
+// `cluster` blocks (1 or 2, dividing Cw and Cout into multiples of 128).
+// The stride-2 body ignores the three: 1 output row a block.
 extern "C" int fused_bottleneck(const void* x, int bf16, int B, int H, int W,
                                 int Cin, int Cw, int Cout, int stride,
                                 int project, const void* w1, const void* b1,
                                 const void* w2, const void* b2,
                                 const void* w3, const void* b3,
                                 const void* wp, const void* bp, void* out,
-                                int rows_per_block, void* stream) {
+                                int rows_per_block, int tile_w, int cluster,
+                                void* stream) {
   if (B < 1 || H < 1 || W < 1 || Cin < kKC || Cin % kKC != 0 || Cw < kKC ||
       Cw % kKC != 0 || Cout < 1 || (stride != 1 && stride != 2) ||
       (stride == 2 && (!project || H % 2 != 0 || W % 2 != 0)) ||
@@ -666,14 +1068,35 @@ extern "C" int fused_bottleneck(const void* x, int bf16, int B, int H, int W,
                ? tc::launch<4>(x, w1, b1, w2, b2, w3, b3, out, B, s, st)
                : tc::launch<2>(x, w1, b1, w2, b2, w3, b3, out, B, s, st);
   }
-  Shape s{H, W, Cin, Cw, Cout, H / stride, W / stride, stride == 1 ? 2 : 1};
-  if (smem_bytes(s, stride) > kMaxSmem) s.TR = 1;
-  if (smem_bytes(s, stride) > kMaxSmem) {
+  if (stride == 1) {
+    Shape s{H, W, Cin, Cw, Cout, H, W, rows_per_block};
+    if (project || Cin % f32::kNT != 0 || (cluster != 1 && cluster != 2) ||
+        (Cw / cluster) % f32::kNT != 0 || (Cout / cluster) % f32::kNT != 0 ||
+        rows_per_block < 1 || rows_per_block > H || tile_w < 1 ||
+        tile_w > W || static_cast<int64_t>(H) * W * Cin > INT32_MAX ||
+        f32::smem_bytes(rows_per_block, tile_w, Cw) > kMaxSmem) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    for (const void* p : {x, w1, w2, w3, static_cast<const void*>(out)}) {
+      if (!tc::aligned16(p)) {
+        return static_cast<int>(cudaErrorMisalignedAddress);
+      }
+    }
+    auto f = [](const void* p) { return static_cast<const float*>(p); };
+    return cluster == 2
+               ? f32::launch<2>(f(x), f(w1), f(b1), f(w2), f(b2), f(w3),
+                                f(b3), static_cast<float*>(out), B, s,
+                                tile_w, st)
+               : f32::launch<1>(f(x), f(w1), f(b1), f(w2), f(b2), f(w3),
+                                f(b3), static_cast<float*>(out), B, s,
+                                tile_w, st);
+  }
+  Shape s{H, W, Cin, Cw, Cout, H / 2, W / 2, 1};
+  if (smem_bytes(s, 2) > kMaxSmem) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // bf16 reaches this body at stride 2 only
   return bf16 ? launch<__nv_bfloat16, 2, true>(x, w1, b1, w2, b2, w3, b3, wp,
                                                bp, out, B, s, st)
-              : dispatch<float>(stride, project, x, w1, b1, w2, b2, w3, b3, wp,
-                                bp, out, B, s, st);
+              : launch<float, 2, true>(x, w1, b1, w2, b2, w3, b3, wp, bp, out,
+                                       B, s, st);
 }

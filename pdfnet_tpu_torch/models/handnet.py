@@ -34,6 +34,7 @@ from pdfnet_tpu_torch.models.layers import (BatchNorm, CenterHead, Dropout,
 from pdfnet_tpu_torch.ops.grouping import KNN_METHODS
 from pdfnet_tpu_torch.ops.pointcloud import depth_to_hand_clouds
 from pdfnet_tpu_torch.ops.sa import check_selection_shape
+from pdfnet_tpu_torch.utils.precision import float32_precision
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -45,9 +46,8 @@ def compute_dtype(cfg: Config) -> torch.dtype:
 def check_config(cfg: Config) -> None:
     """Raise ValueError for an ``arch="csp_*"`` (the CSP detector is
     ``models.csp.build_csp_model``, as in JAX, ``handnet.py:117-122``), a
-    ``knn_method`` neither package has or the device limit a value exceeds
-    (the selection kernel's shared memory, ``ops.sa.check_selection_shape``;
-    k <= N at each level)."""
+    ``knn_method`` neither package has or a selection that does not exist
+    (k above a level's points, ``ops.sa.check_selection_shape``)."""
     if cfg.arch.startswith("csp"):
         raise ValueError(f"arch={cfg.arch!r} is the CSP alternate detector; "
                          "build it with "
@@ -55,8 +55,8 @@ def check_config(cfg: Config) -> None:
     if cfg.knn_method not in KNN_METHODS:
         raise ValueError(f"knn_method={cfg.knn_method!r}: not one of "
                          f"{', '.join(KNN_METHODS)}")
-    # the selection kernel's device limit (ops.sa.MAX_SMEM), at both
-    # set-abstraction levels: N points, S centers, k neighbours
+    # k <= N at both set-abstraction levels: N points, S centers, k
+    # neighbours
     levels = ((1, "sample_num", cfg.sample_num, cfg.sample_num_level1),
               (2, "sample_num_level1", cfg.sample_num_level1,
                cfg.sample_num_level2))
@@ -251,14 +251,16 @@ def infer_rgbd(model: HandNet, img, depth, K, valid,
     normalized RGB, depth (B, H, W) metric, K (B, 3, 3), valid (B, 2);
     numpy arrays or tensors, moved to the model's device.  ``generator`` (on
     that device) feeds the random point sampler.  Runs in eval mode under
-    ``torch.inference_mode()``; returns (result, params, hand_dicts, other),
+    ``torch.inference_mode()``, with TF32 off when the model's compute
+    dtype is float32; returns (result, params, hand_dicts, other),
     which ``eval_outputs(cfg, consts, *out, {"K_new": K})`` turns into the
     serving outputs.  Returns before the device finishes, like any CUDA
     call."""
     device = next(model.parameters()).device
     if model.training:
         model.eval()
-    with torch.inference_mode():
+    with torch.inference_mode(), \
+            float32_precision(model.cfg.compute_dtype):
         img, depth, K, valid = (torch.as_tensor(t, device=device)
                                 for t in (img, depth, K, valid))
         return model(img, depth=depth, K=K, valid=valid,

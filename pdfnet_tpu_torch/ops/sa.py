@@ -33,9 +33,10 @@ Semantics (the TPU kernels', which the tests hold the plain versions to):
 - MLP: per layer, product in the compute dtype with a float32 accumulator,
   then bias + ReLU in float32; max over the k neighbours.
 
-Limits: any k up to N, any N; the selection's shared memory (``MAX_SMEM``,
-``check_selection_shape``) is the one bound, and clouds wider than
-``WIDE_POINTS`` need a global workspace, which the wrappers allocate.
+Limits: any k up to N, any N.  Clouds wider than ``WIDE_POINTS`` need a
+global workspace, which the wrappers allocate; a selection whose lists and
+staged cloud pass the block's shared memory (``MAX_SMEM``) keeps them in
+that workspace and in device memory instead (``selection_spill``).
 
 Compute dtype: the model's (``Config.compute_dtype``).  float32 reproduces
 the TPU kernels' interpret mode, bfloat16 their on-chip mode.
@@ -69,11 +70,12 @@ _MLP_SIGS = {"sa_mlp_max": [_P, _I, _I, _I, _I, _I, _I, _I, _I,
 WIDE_POINTS = 1024       # csrc/sa_group.cu: wider clouds rank into a workspace
 MLP_CHUNK = 64           # csrc/sa_mlp.cu: rows a block takes at a time
 MLP_WIDTHS = ((64, 64, 128), (128, 128, 256))
-# The one device limit of the selection and the MLP kernels: the shared
-# memory a block may use on the H100 (227 KB).
+# The shared memory a block may use on the H100 (227 KB): the selection
+# spills past it, the MLP and trunk bodies name the shapes they refuse.
 MAX_SMEM = 232448
 _SEL_WARPS = 8           # csrc/sa_group.cu kWarps
 _MLP_TC_CENTERS = 2      # csrc/sa_mlp.cu tc::kCenters
+_MLP_F32_RING = 2 * 16 * 128   # csrc/sa_mlp.cu f32::kRing (floats)
 
 
 def selection_smem_bytes(N: int, k: int) -> int:
@@ -85,20 +87,25 @@ def selection_smem_bytes(N: int, k: int) -> int:
     return lists * _SEL_WARPS * k * 8 + N * 3 * 4
 
 
+def selection_spill(N: int, k: int) -> int:
+    """Where the selection keeps what passes shared memory (``spill_of``,
+    ``csrc/sa_group.cu``): 0 nothing spills; 1 the per-warp candidate
+    lists go to a second half of the workspace (N = 4096 with k > 2864,
+    k = N > 3058); 2 the cloud's xyz is read from device memory too (N >
+    19370 at any k)."""
+    if selection_smem_bytes(N, k) <= MAX_SMEM:
+        return 0
+    return 1 if N * 3 * 4 <= MAX_SMEM else 2
+
+
 def check_selection_shape(name: str, N: int, S: int, k: int,
                           separate_centers: bool = False) -> None:
-    """Raise ValueError, naming the limit, for a selection the kernel
-    cannot make: S centers among N points (any S with separate centers),
-    1 <= k <= N, and the shared memory of ``selection_smem_bytes`` within
-    ``MAX_SMEM`` (N = 4096 takes k <= 2864; k = N takes N <= 3058)."""
+    """Raise ValueError for a selection that does not exist: S centers
+    among N points (any S with separate centers) and 1 <= k <= N.  Every
+    such shape runs; past shared memory it spills (``selection_spill``)."""
     if S < 1 or (not separate_centers and S > N) or not 1 <= k <= N:
         raise ValueError(f"{name}: needs 1 <= S <= N and 1 <= k <= N; got "
                          f"N={N}, S={S}, k={k}")
-    need = selection_smem_bytes(N, k)
-    if need > MAX_SMEM:
-        raise ValueError(f"{name}: N={N}, k={k} needs {need} bytes of shared "
-                         f"memory a block, over the device's MAX_SMEM = "
-                         f"{MAX_SMEM}")
 
 
 def mlp_tc_smem_bytes(C: int, widths: Sequence[int], k: int,
@@ -131,6 +138,36 @@ def check_mlp_tc_shape(C: int, widths: Sequence[int], k: int,
                          f"widths {tuple(widths)} need {need} bytes of "
                          f"shared memory, over the device's MAX_SMEM = "
                          f"{MAX_SMEM}")
+
+
+def mlp_f32_smem_bytes(C: int, widths: Sequence[int]) -> int:
+    """Shared memory of ``sa_mlp_max``'s float32 body (``f32::smem_floats``),
+    for units of 128 rows: at level 1's widths the three float32 weights
+    (w1's depth C rounded up to 4), the padded input rows, both hidden
+    layers and the row groups' maxima; at level 2's, w2 and a ring of 2 x
+    16 x 128 for the streamed w1 and w3, the input rows (C rounded up to 16,
+    + 4) and one hidden layer at a time (the maxima over it)."""
+    F1, F2, F3 = widths
+    M = 128
+    if F3 > 128:
+        cp = -(-C // 16) * 16
+        return 4 * (F1 * F2 + _MLP_F32_RING + M * (cp + 4)
+                    + M * (max(F1, F2) + 4))
+    cp = -(-C // 4) * 4
+    return 4 * (cp * F1 + F1 * F2 + F2 * F3 + M * cp + M * (F1 + 4)
+                + M * (F2 + 4) + 8 * 2 * F3)
+
+
+def check_mlp_f32_shape(C: int, widths: Sequence[int]) -> None:
+    """Raise ValueError, naming the limit, where ``sa_mlp_max``'s float32
+    body cannot hold the weights and a unit's rows in shared memory within
+    ``MAX_SMEM`` (both eval levels fit: C = 3 and C = 131; level 2's widths
+    take C up to 144)."""
+    need = mlp_f32_smem_bytes(C, widths)
+    if need > MAX_SMEM:
+        raise ValueError(f"sa_mlp_max: float32 C={C}, widths "
+                         f"{tuple(widths)} need {need} bytes of shared "
+                         f"memory, over the device's MAX_SMEM = {MAX_SMEM}")
 
 
 def reset_launches() -> None:
@@ -233,11 +270,13 @@ def mlp_max_plain(grouped: torch.Tensor, folded: Folded,
 def _workspace(H: int, N: int, S: int, k: int,
                device) -> Optional[torch.Tensor]:
     """The selection's global workspace for wide clouds (N > WIDE_POINTS):
-    (H, S, k) 8-byte entries; a null pointer otherwise.  Freed when the
-    caller drops it, after the launch on the same stream."""
+    (H, S, k) 8-byte entries, twice that where the selection spills its
+    candidate lists (``selection_spill``); a null pointer otherwise.  Freed
+    when the caller drops it, after the launch on the same stream."""
     if N <= WIDE_POINTS:
         return None
-    return torch.empty((H, S, k), dtype=torch.int64, device=device)
+    halves = 2 if selection_spill(N, k) else 1
+    return torch.empty((halves, H, S, k), dtype=torch.int64, device=device)
 
 
 def _ptr(t) -> int:
@@ -307,6 +346,8 @@ def sa_mlp_max(grouped: torch.Tensor, folded: Folded,
                          f"k={k} (widths {MLP_WIDTHS}, k >= 1)")
     if bf16:
         check_mlp_tc_shape(C, widths, k, grouped.element_size())
+    else:
+        check_mlp_f32_shape(C, widths)
     # weights in the compute dtype, biases float32
     params = []
     for w, b in folded:
@@ -332,8 +373,8 @@ def sa_mlp_max(grouped: torch.Tensor, folded: Folded,
 def knn(centers: torch.Tensor, points: torch.Tensor, k: int):
     """Exact k nearest points per center (``knn_pallas``): centers (H, S, 3)
     and points (H, N, 3) float32 -> (dist (H, S, k) float32 ascending, idx
-    (H, S, k) int32 (int64 from the plain version)).  Any S on the card;
-    N and k as ``check_selection_shape`` takes them."""
+    (H, S, k) int32 (int64 from the plain version)).  Any S on the card,
+    any N and 1 <= k <= N."""
     if centers.device.type == "cpu" and points.device.type == "cpu":
         return knn_select_plain(centers, points, k)
     for t in (centers, points):

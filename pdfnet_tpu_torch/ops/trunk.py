@@ -14,7 +14,9 @@ The wrapper runs the plain version for a tensor on the CPU and launches the
 kernel for a CUDA tensor, or raises: there is no fallback.  In bf16 at
 stride 1 the kernel runs its tensor-core body, whose shape limits
 ``check_tc_shape`` names and whose rows per block ``rows_per_block``
-chooses; float32 and stride 2 run the CUDA-core body.  ``launches``
+chooses; in float32 at stride 1 its CUDA-core body, whose limits
+``check_f32_shape`` names and whose tiles and clusters ``f32_plan``
+chooses; stride 2 runs the first CUDA-core body.  ``launches``
 counts kernel launches by stride (``fused_bottleneck_s1`` /
 ``fused_bottleneck_s2``); the plain version never touches it.
 
@@ -49,13 +51,22 @@ launches: Dict[str, int] = {"fused_bottleneck_s1": 0,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {"fused_bottleneck": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                              _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P]}
+                              _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _P]}
 CHANNEL_MULTIPLE = 32    # csrc/trunk_block.cu: depth of a staged chunk
 # csrc/trunk_block.cu's tensor-core body (bf16, stride 1): Cin a multiple of
 # its chunk depth, Cw of its narrowest pass, passes of TC_ROWS rows; its
 # shared memory (tc_smem_bytes) within the H100's 227 KB a block
 TC_CIN_MULTIPLE, TC_CW_MULTIPLE, TC_ROWS = 64, 128, 48
 _TC_STAGES = 2 * (TC_ROWS * (64 + 8) + 64 * (4 * 64 + 8))
+# csrc/trunk_block.cu's float32 stride-1 body (f32::): passes of 16 row
+# groups x RM rows (one of F32_RM) by 128 columns, depth chunks of 16 in a
+# 2-stage ring, each pixel's channels padded by 4 floats; Cin and each
+# cluster block's share of Cw and Cout multiples of F32_CHANNELS
+F32_RM, F32_GROUPS, F32_CHANNELS, F32_KC, F32_PAD = (4, 5, 6, 8, 9), 16, \
+    128, 16, 4
+_F32_STAGES = 2
+_F32_XSTAGE = _F32_STAGES * F32_GROUPS * F32_RM[-1] * (F32_KC + 4)
 H100_SMS = 132
 
 Folded = Dict[str, torch.Tensor]
@@ -155,6 +166,84 @@ def rows_per_block(B: int, H: int, W: int, Cin: int, Cw: int,
     return best[1]
 
 
+def check_f32_shape(H: int, W: int, Cin: int, Cw: int,
+                    project: bool) -> None:
+    """Raise ValueError, naming the limit, for a float32 stride-1 block that
+    the CUDA-core body does not take (every block the trunk routes fits)."""
+    if project:
+        raise ValueError("fused_bottleneck: the float32 stride-1 body takes "
+                         "unprojected blocks only (project=True)")
+    if Cin % F32_CHANNELS or Cw % F32_CHANNELS:
+        raise ValueError(f"fused_bottleneck: the float32 stride-1 body needs "
+                         f"Cin and Cw multiples of {F32_CHANNELS}; got Cin "
+                         f"{Cin}, Cw {Cw}")
+    if H * W * Cin > 2 ** 31 - 1:
+        raise ValueError(f"fused_bottleneck: a map of {H}x{W}x{Cin} is past "
+                         f"the float32 stride-1 body's 32-bit offsets")
+    tw = _f32_tile_widths(W)[-1]
+    if f32_smem_bytes(1, tw, Cw) > MAX_SMEM:
+        raise ValueError(f"fused_bottleneck: a tile of 1 x {tw} at Cw {Cw} "
+                         f"does not fit the float32 stride-1 body's shared "
+                         f"memory ({f32_smem_bytes(1, tw, Cw)} > {MAX_SMEM})")
+
+
+def f32_pass_rows(M: int) -> tuple:
+    """(passes, RM) of the float32 body for a product of M rows
+    (``f32::passes_of``, ``f32::rm_of``): the fewest passes of at most 16 x
+    9 rows, and the smallest of F32_RM rows a thread that covers one."""
+    passes = -(-M // (F32_GROUPS * F32_RM[-1]))
+    need = -(-M // (F32_GROUPS * passes))
+    return passes, min(r for r in F32_RM if r >= need)
+
+
+def f32_smem_bytes(rows: int, tile_w: int, Cw: int) -> int:
+    """Shared memory of the float32 body for a tile of ``rows`` x ``tile_w``
+    output pixels (``f32::smem_bytes``): float32 y1 of the halo'd window
+    (rows + 2, tile_w + 2), y2 (or, while conv1 runs, the staged x chunks,
+    whichever is larger), the weight ring; channels padded by 4."""
+    cs = Cw + F32_PAD
+    return 4 * ((rows + 2) * (tile_w + 2) * cs
+                + max(rows * tile_w * cs, _F32_XSTAGE)
+                + _F32_STAGES * F32_KC * F32_CHANNELS)
+
+
+def _f32_tile_widths(W: int) -> list:
+    return sorted({-(-W // d) for d in (1, 2, 3, 4)}, reverse=True)
+
+
+def f32_plan(B: int, H: int, W: int, Cin: int, Cw: int,
+             sms: int = H100_SMS) -> tuple:
+    """(rows, tile_w, cluster) of the float32 body: the tile of rows x
+    tile_w output pixels (tile_w the width or a half, third or quarter of
+    it, halo columns recomputed) on clusters of 1 or 2 blocks (each a half
+    of the channels, where 128 divides the halves) whose blocks, in waves of
+    one per SM, cost the least; a block costed as its three products'
+    multiply-adds with rows rounded up to whole passes (``f32_pass_rows``).
+    ResNet-50 at 384x384, batch 8: layer2 (3, 48, 1), 128 blocks; layer3
+    (3, 24, 2), 128 blocks."""
+    def slots(m):
+        passes, rm = f32_pass_rows(m)
+        return passes * F32_GROUPS * rm
+
+    best = None
+    for cs in (1, 2):
+        if (Cw // cs) % F32_CHANNELS or (Cin // cs) % F32_CHANNELS:
+            continue
+        for tw in _f32_tile_widths(W):
+            for rows in range(1, H + 1):
+                if f32_smem_bytes(rows, tw, Cw) > MAX_SMEM:
+                    break
+                m1 = min(rows + 2, H) * min(tw + 2, W)
+                m2 = rows * tw
+                work = (slots(m1) * Cin + slots(m2) * 9 * Cw
+                        + slots(m2) * Cin) * (Cw // cs)
+                blocks = B * -(-H // rows) * -(-W // tw) * cs
+                cost = -(-blocks // sms) * work
+                if best is None or cost < best[0]:
+                    best = (cost, (rows, tw, cs))
+    return best[1]
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -195,10 +284,14 @@ def fused_bottleneck(x: torch.Tensor, folded: Folded, stride: int = 1,
     if Cin % CHANNEL_MULTIPLE or Cw % CHANNEL_MULTIPLE:
         raise ValueError(f"fused_bottleneck: Cin {Cin} and Cw {Cw} must be "
                          f"multiples of {CHANNEL_MULTIPLE}")
-    rows = 0                 # the CUDA-core bodies choose their own
+    rows, tile_w, cluster = 0, 0, 0     # the stride-2 body's own
     if x.dtype == torch.bfloat16 and stride == 1:
         check_tc_shape(H, W, Cin, Cw, project)
         rows = rows_per_block(B, H, W, Cin, Cw, _sm_count(x.device))
+    elif stride == 1:
+        check_f32_shape(H, W, Cin, Cw, project)
+        rows, tile_w, cluster = f32_plan(B, H, W, Cin, Cw,
+                                         _sm_count(x.device))
     names = ("w1", "b1", "w2", "b2", "w3", "b3") + (("wp", "bp") if project
                                                      else ())
     params = {}
@@ -216,6 +309,6 @@ def fused_bottleneck(x: torch.Tensor, folded: Folded, stride: int = 1,
         x.data_ptr(), int(x.dtype == torch.bfloat16), B, H, W, Cin, Cw, Cout,
         stride, int(project), ptr("w1"), ptr("b1"), ptr("w2"), ptr("b2"),
         ptr("w3"), ptr("b3"), ptr("wp"), ptr("bp"), out.data_ptr(), rows,
-        _stream()), "fused_bottleneck")
+        tile_w, cluster, _stream()), "fused_bottleneck")
     launches[f"fused_bottleneck_s{stride}"] += 1
     return out

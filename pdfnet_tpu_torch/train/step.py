@@ -43,8 +43,20 @@ from pdfnet_tpu_torch.models.layers import BatchNorm
 from pdfnet_tpu_torch.parallel import mesh
 from pdfnet_tpu_torch.train.loss import LossConsts, compute_loss, eval_outputs
 from pdfnet_tpu_torch.train.mano_branch import ManoBranchConsts, csp_loss
+from pdfnet_tpu_torch.utils.precision import float32_precision
 
 Batch = Dict[str, Any]
+
+
+def _in_precision(cfg: Config, step: Callable) -> Callable:
+    """``step`` run with TF32 off when ``cfg.compute_dtype`` is float32
+    (its convolutions and matmuls, forward and backward), the caller's
+    flags restored after."""
+    @functools.wraps(step)
+    def run(*args, **kwargs):
+        with float32_precision(cfg.compute_dtype):
+            return step(*args, **kwargs)
+    return run
 
 
 @dataclasses.dataclass
@@ -193,7 +205,7 @@ def make_train_step(cfg: Config, model: HandNet, consts: LossConsts
         state.step += 1
         return stats
 
-    return train_step
+    return _in_precision(cfg, train_step)
 
 
 def _norm_stats(norms: List[BatchNorm]) -> List[tuple]:
@@ -415,7 +427,7 @@ def make_csp_train_step(cfg: Config, model: CSPNet, consts: ManoBranchConsts
         state.step += 1
         return stats
 
-    return train_step
+    return _in_precision(cfg, train_step)
 
 
 def make_eval_step(cfg: Config, model: HandNet, consts: LossConsts
@@ -424,8 +436,10 @@ def make_eval_step(cfg: Config, model: HandNet, consts: LossConsts
     choose, cloud, K_new, ...; numpy arrays or tensors; only ``EVAL_KEYS``
     are moved to the device) that runs the model
     in eval mode under ``torch.inference_mode()`` on the model's device and
-    returns ``eval_outputs``.  Returns before the device finishes, like any
-    CUDA call; synchronize to time it."""
+    returns ``eval_outputs``.  In float32 its convolutions and matmuls run
+    with TF32 off (the train steps' too, backward included).  Returns
+    before the device finishes, like any CUDA call; synchronize to time
+    it."""
     device = next(model.parameters()).device
 
     def eval_step(batch: Batch) -> Dict[str, torch.Tensor]:
@@ -438,4 +452,4 @@ def make_eval_step(cfg: Config, model: HandNet, consts: LossConsts
             return eval_outputs(cfg, consts, result, params, hand_dicts,
                                 other, b)
 
-    return eval_step
+    return _in_precision(cfg, eval_step)

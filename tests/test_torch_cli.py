@@ -100,7 +100,7 @@ def test_no_depth_is_refused():
      ValueError, "zero1_opt_sharding is only wired"),
     (["--knn_k", "600"], ValueError, "knn_k=600"),
     (["--sample_num", "4096", "--sample_num_level1", "4096", "--knn_k",
-      "4096"], ValueError, "MAX_SMEM")])
+      "4097"], ValueError, "knn_k=4097")])
 def test_config_values_are_refused_at_parse(argv, exc, name, tmp_path):
     """Refused before any data is read (the cache path does not exist; a
     CSP arch's evaluation raises, as JAX's does, before its first

@@ -230,12 +230,13 @@ def test_cli_takes_multi_process_flags(argv):
 
 
 @pytest.mark.parametrize("kw,name", [
-    (dict(sample_num=3072, sample_num_level1=3072, knn_k=3072),
+    (dict(sample_num=3072, sample_num_level1=3072, knn_k=3073),
      "sample_num=3072"),
     (dict(knn_k=600), "sample_num_level1=512")])
 def test_build_model_refuses_the_remaining_limits(kw, name):
-    """k = N = 3072 needs more shared memory a block than the card has
-    (``ops.sa.MAX_SMEM``); k above a level's points cannot be selected."""
+    """k above a level's points cannot be selected, at any width (k = N =
+    3072, past the block's shared memory, is taken: the selection
+    spills)."""
     with pytest.raises(ValueError, match=name):
         build_model(PortConfig().replace(**kw), device="cpu")
 

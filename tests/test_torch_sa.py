@@ -275,6 +275,23 @@ def test_mlp_tc_shape_guard(level):
         sa.check_mlp_tc_shape(600, widths, sa.MLP_CHUNK, esize)
 
 
+@pytest.mark.parametrize("level", [1, 2])
+def test_mlp_f32_shape_guard(level):
+    """Both eval levels' float32 groups (C = 3 and 131, and six-channel
+    clouds' C = 6 and 134) fit the float32 body's shared memory, whatever
+    k (its units are 128 rows): level 1 holds all three weights (50 KB),
+    level 2 w2 (64 KB) beside a ring for the streamed w1 and w3; a first
+    layer far wider than the eval path's is refused by name."""
+    widths = sa.MLP_WIDTHS[level - 1]
+    for C in ((3, 6), (131, 134))[level - 1]:
+        sa.check_mlp_f32_shape(C, widths)
+        assert sa.mlp_f32_smem_bytes(C, widths) <= sa.MAX_SMEM
+    C = (3, 131)[level - 1]
+    assert sa.mlp_f32_smem_bytes(C, widths) == (130048, 225280)[level - 1]
+    with pytest.raises(ValueError, match="MAX_SMEM"):
+        sa.check_mlp_f32_shape(600, widths)
+
+
 # ---- the cases a threshold selection stresses ------------------------------
 
 def _cloud(kind):

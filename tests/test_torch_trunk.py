@@ -231,3 +231,60 @@ def test_tc_shape_guard_names_what_it_refuses():
         trunk.check_tc_shape(24, 24, 256, 64, False)
     with pytest.raises(ValueError, match="shared memory"):
         trunk.check_tc_shape(200, 200, 1024, 256, False)
+
+
+@pytest.mark.parametrize("B,hw,cin,cw", TC_SHAPES)
+def test_f32_plan_covers_every_output_pixel_once(B, hw, cin, cw):
+    """The float32 body's tiles (grid ceil(H / rows) x ceil(W / tile_w),
+    tile t = rows [r0, r0 + rows) x columns [c0, c0 + tile_w) clipped to
+    the map, each on one cluster) cover each output pixel once; the tile
+    fits the block's shared memory and the cluster divides the channels
+    into the body's 128-column passes."""
+    rows, tw, cs = trunk.f32_plan(B, hw, hw, cin, cw)
+    assert 1 <= rows <= hw and 1 <= tw <= hw and cs in (1, 2)
+    assert trunk.f32_smem_bytes(rows, tw, cw) <= trunk.MAX_SMEM
+    assert (cw // cs) % trunk.F32_CHANNELS == 0
+    assert (cin // cs) % trunk.F32_CHANNELS == 0
+    seen = np.zeros((hw, hw), int)
+    tiles_w = -(-hw // tw)
+    for t in range(-(-hw // rows) * tiles_w):
+        r0, c0 = (t // tiles_w) * rows, (t % tiles_w) * tw
+        seen[r0:min(r0 + rows, hw), c0:min(c0 + tw, hw)] += 1
+    assert (seen == 1).all()
+
+
+def test_f32_plan_fills_the_h100_at_the_main_shapes():
+    """Batch 8: 3 rows a tile at layer2, full width, 128 blocks; 3 rows at
+    layer3 on clusters of 2 blocks, 128 blocks; each product's passes sized
+    to its rows (240 conv1 rows as 2 x 16 x 8, 144 as 16 x 9; 120 as
+    16 x 8, 72 as 16 x 5), as the source note of csrc/trunk_block.cu
+    states."""
+    assert trunk.f32_plan(8, 48, 48, 512, 128) == (3, 48, 1)
+    assert trunk.f32_plan(8, 24, 24, 1024, 256) == (3, 24, 2)
+    assert trunk.f32_smem_bytes(3, 48, 128) == 224416
+    assert trunk.f32_smem_bytes(3, 24, 256) == 226464
+    assert [trunk.f32_pass_rows(m) for m in (240, 144, 120, 72)] == \
+        [(2, 8), (1, 9), (1, 8), (1, 5)]
+    for m in range(1, 600):
+        passes, rm = trunk.f32_pass_rows(m)
+        assert rm in trunk.F32_RM
+        assert (passes - 1) * 16 * rm < m <= passes * 16 * rm
+
+
+def test_f32_shape_guard_names_what_it_refuses():
+    res = ResNet()
+    for name in res.fusable:                # every block the trunk routes
+        blk = getattr(res, name)
+        hw = 48 if name.startswith("layer2") else 24
+        trunk.check_f32_shape(hw, hw, blk.conv1.in_channels,
+                              blk.conv1.out_channels, blk.project)
+    with pytest.raises(ValueError, match="unprojected"):
+        trunk.check_f32_shape(24, 24, 256, 128, True)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        trunk.check_f32_shape(24, 24, 96, 128, False)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        trunk.check_f32_shape(24, 24, 256, 64, False)
+    with pytest.raises(ValueError, match="shared memory"):
+        trunk.check_f32_shape(24, 800, 1024, 1024, False)
+    with pytest.raises(ValueError, match="32-bit"):
+        trunk.check_f32_shape(4096, 4096, 256, 128, False)
